@@ -1,0 +1,339 @@
+"""Quadrotor APG training, concurrent mode (counterpart of the JAX
+package's ``training/train_quad.py``).
+
+Each train step featurizes a (state, reference window) batch, runs the
+controller, unrolls the dynamics for k steps with :func:`quad_rollout`
+(the fused CUDA kernels on the card, the plain twin on the CPU), scores the
+unroll with :func:`quad_mpc_loss`, backpropagates through it and takes an
+SGD-momentum step. Around it, :class:`TrainQuad` runs the epoch loop with
+the thresh_div and speed curricula, closed-loop evaluation, self-play
+insertion, periodic resampling and best-checkpoint selection.
+
+Run it with::
+
+    python -m apg_trajectory_tracking_tpu_torch.training.train_quad \
+        -s NAME --epochs N [--data_dir D] [--cpu]
+"""
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from apg_trajectory_tracking_tpu_torch.data.dataset import (
+    insert_self_play,
+    make_quad_buffers,
+    quad_prepare_data,
+    replace_sampled,
+)
+from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
+    full_state_training_data,
+)
+from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import run_eval
+from apg_trajectory_tracking_tpu_torch.losses import quad_mpc_loss
+from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
+from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
+    ensure_trajectory_bank,
+    load_trajectory_bank,
+    prepare_trajectory,
+)
+from apg_trajectory_tracking_tpu_torch.training.common import (
+    load_config,
+    sgd_momentum,
+    shuffled_batches,
+)
+from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+    checkpoint_exists,
+    save_train_state,
+)
+from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+from apg_trajectory_tracking_tpu_torch.utils.logging import ResultsLogger
+
+IN_STATE_SIZE = 15  # quad feature vector (data/dataset.py)
+
+
+def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
+                    action_dim=4, remat=False):
+    """Loss of one concurrent-mode batch: the net emits all k actions at
+    once and the dynamics unroll them from the drone-centric state."""
+    in_state, current_state, in_ref, rel_ref = quad_prepare_data(states, refs)
+    action_seq = torch.sigmoid(net(in_state, in_ref)).reshape(
+        -1, horizon, action_dim
+    )
+    inter = quad_rollout(dyn_params, current_state, action_seq, dt,
+                         remat=remat)
+    return quad_mpc_loss(inter, rel_ref, action_seq)
+
+
+def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
+                          remat=False):
+    """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
+    ``optimizer`` on ``net``. ``remat`` recomputes each dynamics step in
+    the backward pass on the CPU twin; the kernel path keeps only the
+    rollout's outputs and recomputes nothing."""
+
+    def step(dyn_params, states, refs):
+        optimizer.zero_grad(set_to_none=True)
+        loss = concurrent_loss(net, dyn_params, states, refs, dt, horizon,
+                               action_dim, remat)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1: {item})"
+    )
+
+
+class TrainQuad:
+    """Host-side orchestration of concurrent-mode quad APG training."""
+
+    def __init__(
+        self,
+        config=None,
+        seed=0,
+        save_name="test",
+        data_dir="data/traj_data",
+        base_model=None,
+        minjerk_mix=0.0,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.config = cfg = dict(config or load_config("quad"))
+        mode = cfg.get("train_mode", "concurrent")
+        if mode in ("autoregressive", "LSTM"):
+            raise _not_ported(f"train_mode {mode!r}", "recurrent modes")
+        if mode != "concurrent":
+            raise ValueError(
+                "train_mode must be concurrent, autoregressive, or LSTM"
+            )
+        if base_model is not None:
+            raise _not_ported("resuming from base_model", "extras")
+        if float(minjerk_mix) != 0.0:
+            raise _not_ported("minjerk_mix > 0", "extras")
+        if cfg.get("checkpoint_backend", "npz") != "npz":
+            raise _not_ported("the orbax checkpoint backend", "extras")
+
+        self.dt = cfg["delta_t"]
+        self.horizon = cfg["horizon"]
+        self.batch_size = cfg["batch_size"]
+        self.action_dim = cfg["action_dim"]
+        self.ref_length = self.horizon
+        self.thresh_div = cfg["thresh_div_start"]
+        self.thresh_stable = cfg["thresh_stable_start"]
+        # the speed curriculum starts at 0.2; the training data keeps the
+        # config's speed factor
+        self.speed_factor = 0.2
+        self.data_speed_factor = cfg["speed_factor"]
+        self.dyn = quad_params(cfg.get("modified_params", {}), self.device)
+        self.bank = load_trajectory_bank(ensure_trajectory_bank(data_dir))
+
+        # numpy draws (data sampling, eval references) follow the JAX
+        # trainer's RandomState(seed); the net init and minibatch shuffles
+        # draw from a torch generator
+        self.rng = np.random.RandomState(seed)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.net = ControlNet(
+            IN_STATE_SIZE, self.horizon, cfg["ref_dim"],
+            self.action_dim * self.horizon, hidden=cfg.get("hidden", 64),
+            generator=self.generator,
+        ).to(self.device)
+        self.optimizer = sgd_momentum(
+            self.net.parameters(), cfg["learning_rate_controller"]
+        )
+        self._train_step = build_concurrent_step(
+            self.net, self.optimizer, self.dt, self.horizon, self.action_dim
+        )
+        self.steps_taken = 0
+
+        # epoch_size sampled rows + self_play * epoch_size ring slots
+        num_sampled = cfg["epoch_size"]
+        num_sp = int(cfg["self_play"] * cfg["epoch_size"])
+        states, refs = full_state_training_data(
+            self.rng, self.bank, num_sampled + num_sp,
+            ref_length=self.ref_length, dt=self.dt,
+            speed_factor=self.data_speed_factor,
+        )
+        self.buffers = make_quad_buffers(states, refs, num_sampled,
+                                         self.device)
+
+        self.save_path = os.path.join("trained_models", "quad", save_name)
+        self.logger = ResultsLogger(self.save_path)
+        # best-model criterion: 1 keeps the highest mean_success, -1 the
+        # lowest mean_divergence
+        self.suc_up_down = cfg.get("suc_up_down", 1)
+        self.best_score = -np.inf if self.suc_up_down == 1 else np.inf
+        self.successes = []
+        self.first_epoch_with_this_vel = 0
+
+    def _eval_references(self, nr_test):
+        """nr_test random training-bank references at the current
+        curriculum speed, lifted by z += 3."""
+        idx = self.rng.randint(len(self.bank), size=nr_test)
+        refs = np.stack(
+            [prepare_trajectory(self.bank[i], self.dt, self.speed_factor)
+             for i in idx]
+        )
+        refs[:, :, 2] += 3.0
+        return refs, refs.shape[1] - self.horizon
+
+    def evaluate(self, epoch, nr_test=10):
+        """Train-time closed-loop eval (reset on divergence): feeds the
+        self-play ring, the thresh_div curriculum and checkpoint choice."""
+        refs, ref_len = self._eval_references(nr_test)
+        metrics, roll = run_eval(
+            self.net, self.dyn, refs, ref_len,
+            thresh_div=self.thresh_div, thresh_stable=self.thresh_stable,
+            horizon=self.horizon, dt=self.dt,
+        )
+        self._self_play_insert(roll)
+        self.logger.log_dict(metrics)
+        self.logger.log("thresh_div", self.thresh_div)
+
+        # thresh_div curriculum
+        if epoch % 5 == 0 and self.thresh_div < self.config["thresh_div_end"]:
+            self.thresh_div += 0.05
+
+        if self.suc_up_down == 1:
+            score = metrics["mean_success"]
+            improved = score > self.best_score
+        else:
+            score = metrics["mean_divergence"]
+            improved = score < self.best_score
+        if epoch > 0 and improved:
+            self.best_score = score
+            # epoch-suffixed snapshot on improvement, then the best one
+            self._save(epoch=epoch)
+            self._save()
+        return metrics
+
+    def _self_play_insert(self, roll):
+        """Insert every take_every_x-th visited (state, window) pair into
+        the self-play ring."""
+        if self.buffers.num_self_play == 0:
+            return
+        take = self.config.get("self_play_every_x", 2)
+        states = roll["states"].reshape(-1, 12)[::take]
+        wl = roll["windows"].shape[-2]
+        windows = roll["windows"].reshape(-1, wl, 9)[::take]
+        self.buffers = insert_self_play(self.buffers, states, windows)
+
+    def _resample(self, epoch):
+        """Resample the sampled segment every resample_every epochs."""
+        if (epoch + 1) % self.config["resample_every"] == 0:
+            states, refs = full_state_training_data(
+                self.rng, self.bank, self.buffers.num_sampled,
+                ref_length=self.ref_length, dt=self.dt,
+                speed_factor=self.data_speed_factor,
+            )
+            self.buffers = replace_sampled(self.buffers, states, refs)
+
+    def _speed_curriculum(self, epoch):
+        """Raise the replay speed by 0.1 (up to 0.4) after five good epochs
+        or 100 epochs at this speed."""
+        current_possible = 1000 / (self.speed_factor / self.dt)
+        self.successes.append(self.logger.results["mean_success"][-1])
+        advance = (
+            len(self.successes) > 5
+            and np.all(np.array(self.successes[-5:]) > current_possible)
+        ) or (epoch - self.first_epoch_with_this_vel > 100)
+        if advance and self.speed_factor < 0.4:
+            self.speed_factor = round(self.speed_factor + 0.1, 3)
+            self.thresh_div = 0.1
+            self.successes = []
+            self.first_epoch_with_this_vel = epoch + 1
+            self.best_score = -np.inf if self.suc_up_down == 1 else np.inf
+            print(f" ---- increase speed to {self.speed_factor} ---- ")
+
+    def run_epoch(self):
+        idx = shuffled_batches(
+            self.generator, len(self.buffers.states), self.batch_size
+        ).to(self.device)
+        t0 = time.perf_counter()
+        losses = torch.stack([
+            self._train_step(self.dyn, self.buffers.states[b],
+                             self.buffers.refs[b])
+            for b in idx
+        ])
+        loss = float(losses.mean())  # waits for the device
+        dt_epoch = time.perf_counter() - t0
+        self.steps_taken += len(idx)
+        self.logger.log("loss", loss)
+        self.logger.log("epoch_time_s", dt_epoch)
+        self.logger.log(
+            "env_steps_per_s", idx.numel() * self.horizon / max(dt_epoch, 1e-9)
+        )
+        return loss
+
+    def fit(self, nr_epochs=None, nr_test=10, verbose=True):
+        nr_epochs = nr_epochs or self.config["nr_epochs"]
+        for epoch in range(nr_epochs):
+            metrics = self.evaluate(epoch, nr_test=nr_test)
+            self._speed_curriculum(epoch)
+            self._resample(epoch)
+            loss = self.run_epoch()
+            if verbose:
+                print(
+                    f"Epoch {epoch}: loss {loss:.1f} "
+                    f"success {metrics['mean_success']:.1f} "
+                    f"div {metrics['mean_divergence']:.3f} "
+                    f"speed {self.speed_factor} thresh {self.thresh_div:.2f}"
+                )
+        self.finalize()
+        return self
+
+    def _save(self, epoch=None, suffix=""):
+        name = "model_quad" + (str(epoch) if epoch is not None else suffix)
+        save_train_state(
+            self.save_path, name, self.net, self.optimizer,
+            {
+                **self.config,
+                "thresh_div": self.thresh_div,
+                "speed_factor": self.speed_factor,
+                "mean": self.buffers.mean.tolist(),
+                "std": self.buffers.std.tolist(),
+                "ref_length": self.ref_length,
+                "minjerk_mix": 0.0,
+            },
+        )
+
+    def finalize(self):
+        # the final weights go under their own name; the unsuffixed
+        # model_quad stays the best-by-criterion snapshot, unless no
+        # improvement was ever recorded
+        self._save(suffix="_final")
+        if not checkpoint_exists(self.save_path, "model_quad"):
+            self._save()
+        self.logger.finalize()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train a quadrotor APG controller (concurrent mode) "
+                    "with the PyTorch port."
+    )
+    parser.add_argument("-s", "--save_name", default="test")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--data_dir", default="data/traj_data",
+                        help="trajectory bank directory (generated on "
+                             "first use)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="train on the CPU instead of the card")
+    args = parser.parse_args(argv)
+    trainer = TrainQuad(
+        load_config("quad"), save_name=args.save_name,
+        data_dir=args.data_dir, device="cpu" if args.cpu else "cuda",
+    )
+    trainer.fit(args.epochs)
+
+
+if __name__ == "__main__":
+    main()
