@@ -38,11 +38,12 @@ def nvcc_path():
     return found
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless the
-    library is newer than its source. Returns (library path, compiler log;
-    empty when nothing was compiled)."""
-    src = SOURCE_DIR / f"{name}.cu"
+def build(name, src=None):
+    """Compile ``src`` (by default ``csrc/<name>.cu``) into
+    ``build/lib<name>.so`` unless the library is newer than its source.
+    Returns (library path, compiler log; empty when nothing was
+    compiled)."""
+    src = SOURCE_DIR / f"{name}.cu" if src is None else Path(src)
     lib = BUILD_DIR / f"lib{name}.so"
     if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
         return lib, ""
@@ -68,11 +69,12 @@ def build(name):
     return lib, proc.stdout + proc.stderr
 
 
-def load(name, signatures):
-    """Build if needed and load ``lib<name>.so``; ``signatures`` maps each
-    C function to its ctypes argtypes (all return ``int``)."""
+def load(name, signatures, src=None):
+    """Build (from ``src``, as :func:`build`) if needed and load
+    ``lib<name>.so``; ``signatures`` maps each C function to its ctypes
+    argtypes (all return ``int``)."""
     if name not in _LIBS:
-        path, _ = build(name)
+        path, _ = build(name, src)
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

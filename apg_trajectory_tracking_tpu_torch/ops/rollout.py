@@ -11,7 +11,11 @@ the plain twin :func:`quad_rollout_reference` runs under torch autograd.
 written in PyTorch, the oracle for the kernel on the card.
 
 The kernels take the dynamics params as constants and return no gradient
-for them.
+for them. They stage each block's rows through shared memory in 16-byte
+units, so every tensor they take must start at a 16-byte aligned address:
+PyTorch's allocator gives that, but a float32 view whose storage offset
+is not a multiple of 4 does not, and the wrappers refuse it rather than
+copy it.
 """
 
 import ctypes
@@ -25,6 +29,8 @@ from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 # launches of each kernel since the counter was last set to 0
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# alignment the kernels need of every tensor's first element
+ALIGN_BYTES = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -151,7 +157,9 @@ def quad_rollout_backward_reference(params, states0, actions, states_out,
 
 def _check_rollout(states, actions, **more):
     """Check what the kernels take: a horizon of at least 1, and float32
-    contiguous CUDA tensors of the rollout's shapes on one device."""
+    contiguous 16-byte aligned CUDA tensors of the rollout's shapes on one
+    device. Every tensor's layout is checked before any device, so a CPU
+    tensor shows its layout faults too."""
     if actions.dim() != 3:
         raise ValueError(f"actions must be (B, k, 4), got {actions.shape}")
     B, k = actions.shape[0], actions.shape[1]
@@ -161,15 +169,18 @@ def _check_rollout(states, actions, **more):
               "states_out": (B, k, 12), "grad_out": (B, k, 12)}
     tensors = {"states": states, "actions": actions, **more}
     for name, tensor in tensors.items():
-        _check(name, tensor, shapes[name])
+        _check_layout(name, tensor, shapes[name])
+    for name, tensor in tensors.items():
+        if not tensor.is_cuda:
+            raise ValueError(
+                f"{name} must be a CUDA tensor, got {tensor.device}"
+            )
     if len({t.device for t in tensors.values()}) != 1:
         raise ValueError("rollout tensors lie on different devices")
     return B, k
 
 
-def _check(name, tensor, shape):
-    if not tensor.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {tensor.device}")
+def _check_layout(name, tensor, shape):
     if tensor.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {tensor.dtype}")
     if not tensor.is_contiguous():
@@ -177,6 +188,13 @@ def _check(name, tensor, shape):
     if tuple(tensor.shape) != tuple(shape):
         raise ValueError(
             f"{name} has shape {tuple(tensor.shape)}, expected {tuple(shape)}"
+        )
+    # the kernels copy rows between global and shared memory in 16-byte
+    # units
+    if tensor.data_ptr() % ALIGN_BYTES:
+        raise ValueError(
+            f"{name} must start at a {ALIGN_BYTES}-byte aligned address, got "
+            f"storage offset {tensor.storage_offset()}"
         )
 
 

@@ -1,13 +1,17 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OLD.cu]
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit; TF32 must be off;
-  2. build the CUDA kernels from ``apg_trajectory_tracking_tpu_torch/csrc``;
-  3. forward kernel vs its plain twin, B in {8, 4096, 4097}, k = 10,
-     default params and a set with drag and a tilted gravity vector;
+  2. build the CUDA kernels from ``apg_trajectory_tracking_tpu_torch/csrc``
+     (and an empty kernel for the launch floor), one nvcc each, in parallel;
+  3. forward kernel vs its plain twin, B in {1, 8, 31, 32, 33, 4096, 4097}
+     (whole and ragged tiles of 8 and 32 rows), k in {1, 10, 11, 32}
+     (around the 10-step chunks), default params and a set with drag and a
+     tilted gravity vector, and on aligned views one row into larger
+     tensors;
   4. backward kernel vs the hand-derived plain backward and vs torch
      autograd of the twin, at the same shapes;
   5. the shipped ``assets/quad_trained_9k`` controller, carried across from
@@ -17,12 +21,21 @@ Phases, in order; any failure exits non-zero:
      epochs on the card, with both kernels' launch counts, checkpoint files
      and a reload check;
   7. timings: the concurrent train step at B = 4096 and each kernel at
-     B = 4096, k = 10, beside its bound and its plain twin.
+     B = 8 (the shipped config's batch) and B = 4096, k = 10, beside its
+     bound, its plain twin and the device time of an empty kernel;
+  8. only with ``--baseline OLD.cu``: another source with the same C
+     interface, such as an earlier revision of ``csrc/quad_rollout.cu``,
+     built and checked against the plain versions, then timed with the
+     port's kernels in turns (baseline, port, port, baseline) at B = 8 and
+     4096, k = 10.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
+import ctypes
+import functools
 import json
 import math
 import os
@@ -30,6 +43,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,10 +51,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-B_LIST = (8, 4096, 4097)
+B_LIST = (1, 8, 31, 32, 33, 4096, 4097)
+K_LIST = (1, 10, 11, 32)
 HORIZON = 10
 DT = 0.1
 TIMING_B = 4096
+TRAIN_B = 8  # the batch of configs/quad_config.json
 TIMING_RUNS = 50
 # forward tolerance of the Pallas kernel's own test (rtol 1e-4, atol 1e-5);
 # the backward's atol scales with the gradient's largest magnitude
@@ -60,6 +76,16 @@ FWD_OPS_PER_ROW_STEP = 79
 BWD_OPS_PER_ROW_STEP = 146
 PALLAS_CALL = "apg_trajectory_tracking_tpu/ops/pallas_rollout.py:114"
 SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/quad_rollout.cu"
+# rows per block of the kernels (kRows in SOURCE): the empty kernel's grid
+TILE_ROWS = 8
+EMPTY_KERNEL_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 DRAG_PARAMS = {
     "translational_drag": [0.1, -0.2, 0.3],
     "rotational_drag": [0.05, 0.02, -0.01],
@@ -77,15 +103,24 @@ def max_errs(got, ref):
     return diff.max().item(), rel.max().item()
 
 
-def rollout_inputs(B, seed, device):
+def rollout_inputs(B, seed, device, k=HORIZON):
     rng = np.random.RandomState(seed)
     states = torch.tensor(rng.randn(B, 12).astype(np.float32) * 0.3,
                           device=device)
-    actions = torch.tensor(rng.rand(B, HORIZON, 4).astype(np.float32),
+    actions = torch.tensor(rng.rand(B, k, 4).astype(np.float32),
                            device=device)
-    grad_out = torch.tensor(rng.randn(B, HORIZON, 12).astype(np.float32),
+    grad_out = torch.tensor(rng.randn(B, k, 12).astype(np.float32),
                             device=device)
     return states, actions, grad_out
+
+
+def one_row_in(x):
+    """A copy of ``x`` as the view ``big[1:]`` of a tensor one row longer:
+    contiguous, with a nonzero (16-byte aligned) storage offset."""
+    big = torch.zeros((x.shape[0] + 1, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    big[1:] = x
+    return big[1:]
 
 
 def time_cuda(fn, runs=TIMING_RUNS, warmup=5):
@@ -129,14 +164,54 @@ def profile_kernels(fn, runs=TIMING_RUNS, warmup=5):
 def kernel_device_ms(fn, kernel):
     """Median device time in ms of the CUDA kernel whose name contains
     ``kernel``, one launch per call of ``fn``."""
-    runs, _ = profile_kernels(fn)
-    times = [us for name, us in runs if kernel in name]
-    if len(times) < TIMING_RUNS:
-        raise AssertionError(
-            f"profiler saw {len(times)} runs of {kernel}, expected "
-            f"{TIMING_RUNS}"
-        )
-    return float(np.median(times)) / 1e3
+    return group_device_ms([("one", kernel, fn)])["one"]
+
+
+def group_device_ms(groups, warmup=5):
+    """Median device time in ms of each (label, kernel, fn) of ``groups``,
+    from one torch.profiler session that calls each ``fn`` TIMING_RUNS
+    times, group after group, each call launching one kernel whose name
+    contains ``kernel``. One stream runs the launches in order, so the k-th
+    group's runs are the k-th TIMING_RUNS kernel events. The profiler now
+    and then drops events. With one group, the runs it saw are enough if
+    they are at least half; with more, a session whose events do not line
+    up is traced again, up to five times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, _, fn in groups:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    expected = [kernel for _, kernel, _ in groups for _ in range(TIMING_RUNS)]
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _, _, fn in groups:
+                for _ in range(TIMING_RUNS):
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if len(groups) == 1:
+            (label, kernel, _), = groups
+            us = [e.time_range.elapsed_us() for e in events
+                  if kernel in e.name]
+            if len(us) >= TIMING_RUNS // 2:
+                return {label: float(np.median(us)) / 1e3}
+        elif len(events) == len(expected) and all(
+                kernel in e.name for kernel, e in zip(expected, events)):
+            us = [e.time_range.elapsed_us() for e in events]
+            return {label: float(np.median(
+                        us[i * TIMING_RUNS:(i + 1) * TIMING_RUNS])) / 1e3
+                    for i, (label, _, _) in enumerate(groups)}
+        log(f"    (profiler saw {len(events)} kernel runs, expected "
+            f"{len(expected)} in order; tracing again)")
+    raise AssertionError(
+        f"profiler saw {len(events)} kernel runs, expected {len(expected)} "
+        f"in order"
+    )
 
 
 def time_host(fn, runs=TIMING_RUNS, warmup=5):
@@ -179,63 +254,86 @@ def phase_device():
     return device, smi
 
 
-def phase_build():
+def phase_build(baseline=None):
+    """Build the port's kernels, the empty kernel and, if given, the
+    ``baseline`` source through the port's loader: one nvcc each, all
+    started together -> {name: library path}."""
     from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    empty_src = cuda_lib.BUILD_DIR / "empty_kernel.cu"
+    empty_src.write_text(EMPTY_KERNEL_SOURCE)
+    sources = {"quad_rollout": None, "empty_kernel": empty_src}
+    if baseline:
+        sources["quad_rollout_baseline"] = baseline
     t0 = time.perf_counter()
-    path, build_log = cuda_lib.build("quad_rollout")
-    log(f"[2] built {os.path.relpath(path, ROOT)} in "
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {name: pool.submit(cuda_lib.build, name, src)
+                   for name, src in sources.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    log(f"[2] built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in build_log.strip().splitlines():
-        log(f"[2]   {line}")
+    for name, (path, build_log) in built.items():
+        log(f"[2] {os.path.relpath(path, ROOT)}")
+        for line in build_log.strip().splitlines():
+            log(f"[2]   {line}")
+    return {name: path for name, (path, _) in built.items()}
+
+
+def check_kernels(params, states, actions, grad_out, worst, tag, view=False):
+    """Run both kernel wrappers and hold them against the plain forward
+    twin, the hand-derived plain backward and torch autograd of the twin.
+    With ``view`` the kernels get each tensor as ``big[1:]`` of a tensor
+    one row longer, and the plain versions the fresh tensors."""
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    place = one_row_in if view else (lambda x: x)
+    scalars = params.kernel_scalars
+    out = R.quad_rollout_fwd(place(states), place(actions), scalars, DT)
+    ga, gs = R.quad_rollout_bwd(place(states), place(actions), place(out),
+                                place(grad_out), scalars, DT)
+    ref = R.quad_rollout_reference(params, states, actions, DT)
+    ga_ref, gs_ref = R.quad_rollout_backward_reference(
+        params, states, actions, out, grad_out, DT
+    )
+    s_ag = states.clone().requires_grad_()
+    a_ag = actions.clone().requires_grad_()
+    ga_ag, gs_ag = torch.autograd.grad(
+        R.quad_rollout_reference(params, s_ag, a_ag, DT), (a_ag, s_ag),
+        grad_out,
+    )
+    torch.cuda.synchronize()
+    f_abs, f_rel = max_errs(out, ref)
+    worst["quad_rollout_fwd"] = max(worst["quad_rollout_fwd"], f_abs)
+    checks = [(out, ref, ATOL)]
+    parts = []
+    for name, got, plain, auto in (("grad_actions", ga, ga_ref, ga_ag),
+                                   ("grad_states0", gs, gs_ref, gs_ag)):
+        atol = BWD_ATOL_REL * plain.abs().max().item()
+        e_plain, e_auto = max_errs(got, plain)[0], max_errs(got, auto)[0]
+        worst["quad_rollout_bwd"] = max(worst["quad_rollout_bwd"], e_plain)
+        parts.append(f"{name} abs {e_plain:.2e} (vs autograd {e_auto:.2e}, "
+                     f"atol {atol:.1e})")
+        checks += [(got, plain, atol), (got, auto, atol)]
+    log(f"[3-4] {tag}: fwd abs {f_abs:.2e} rel {f_rel:.2e}; bwd "
+        + "; ".join(parts))
+    for got, want, atol in checks:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=atol)
 
 
 def phase_kernels(device):
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
 
     worst = {"quad_rollout_fwd": 0.0, "quad_rollout_bwd": 0.0}
     for label, mods in (("default", {}), ("drag+gravity", DRAG_PARAMS)):
         params = quad_params(mods, device)
-        scalars = params.kernel_scalars
         for B in B_LIST:
-            states, actions, grad_out = rollout_inputs(B, B, device)
-            out = R.quad_rollout_fwd(states, actions, scalars, DT)
-            ref = R.quad_rollout_reference(params, states, actions, DT)
-            torch.cuda.synchronize()
-            abs_err, rel_err = max_errs(out, ref)
-            worst["quad_rollout_fwd"] = max(worst["quad_rollout_fwd"], abs_err)
-            log(f"[3] fwd {label} B={B}: max abs {abs_err:.3e} "
-                f"max rel {rel_err:.3e}")
-            torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-
-            ga, gs = R.quad_rollout_bwd(states, actions, out, grad_out,
-                                        scalars, DT)
-            ga_ref, gs_ref = R.quad_rollout_backward_reference(
-                params, states, actions, out, grad_out, DT
-            )
-            s_ag = states.clone().requires_grad_()
-            a_ag = actions.clone().requires_grad_()
-            ga_ag, gs_ag = torch.autograd.grad(
-                R.quad_rollout_reference(params, s_ag, a_ag, DT),
-                (a_ag, s_ag), grad_out,
-            )
-            torch.cuda.synchronize()
-            for name, got, plain, auto in (
-                ("grad_actions", ga, ga_ref, ga_ag),
-                ("grad_states0", gs, gs_ref, gs_ag),
-            ):
-                atol = BWD_ATOL_REL * plain.abs().max().item()
-                e_plain = max_errs(got, plain)
-                e_auto = max_errs(got, auto)
-                worst["quad_rollout_bwd"] = max(worst["quad_rollout_bwd"],
-                                                e_plain[0])
-                log(f"[4] bwd {label} B={B} {name}: vs plain abs "
-                    f"{e_plain[0]:.3e} rel {e_plain[1]:.3e}; vs autograd "
-                    f"abs {e_auto[0]:.3e} rel {e_auto[1]:.3e} "
-                    f"(atol {atol:.2e})")
-                torch.testing.assert_close(got, plain, rtol=RTOL, atol=atol)
-                torch.testing.assert_close(got, auto, rtol=RTOL, atol=atol)
+            for k in K_LIST:
+                inputs = rollout_inputs(B, 100 * B + k, device, k)
+                check_kernels(params, *inputs, worst, f"{label} B={B} k={k}")
+        inputs = rollout_inputs(4097, 3, device, 11)
+        check_kernels(params, *inputs, worst,
+                      f"{label} B=4097 k=11 offset views", view=True)
     return worst
 
 
@@ -351,7 +449,7 @@ def phase_training(device):
     return launches
 
 
-def phase_timing(device):
+def phase_timing(device, empty_lib):
     from apg_trajectory_tracking_tpu_torch.data.dataset import (
         quad_prepare_data,
     )
@@ -364,6 +462,9 @@ def phase_timing(device):
         build_concurrent_step,
     )
 
+    # loaded and launched once before any profiler session, as the
+    # rollout library is
+    empty_launch = empty_launcher(empty_lib)
     params = quad_params(device=device)
     rng = np.random.RandomState(0)
     states = torch.tensor(rng.randn(TIMING_B, 12).astype(np.float32) * 0.3,
@@ -405,57 +506,161 @@ def phase_timing(device):
     }
     log(f"[7] train step: {json.dumps(metric)}")
 
-    s, a, g = rollout_inputs(TIMING_B, 1, device)
     scalars = params.kernel_scalars
-    out = R.quad_rollout_fwd(s, a, scalars, DT)
-    n = TIMING_B
-    # each input read once, each output written once, float32
-    fwd_bytes = 4 * n * ((12 + 4 * HORIZON) + 12 * HORIZON)
-    bwd_bytes = 4 * n * ((12 + 4 * HORIZON + 24 * HORIZON)
-                         + (4 * HORIZON + 12))
-
-    def fwd():
-        R.quad_rollout_fwd(s, a, scalars, DT)
-
-    def bwd():
-        R.quad_rollout_bwd(s, a, out, g, scalars, DT)
-
-    timings = {
-        "quad_rollout_fwd": (
-            kernel_device_ms(fwd, "quad_rollout_fwd_kernel"),
-            time_cuda(fwd),
-            time_cuda(lambda: R.quad_rollout_reference(params, s, a, DT)),
-            bound_ms(fwd_bytes, FWD_OPS_PER_ROW_STEP * n * HORIZON),
-        ),
-        "quad_rollout_bwd": (
-            kernel_device_ms(bwd, "quad_rollout_bwd_kernel"),
-            time_cuda(bwd),
-            time_cuda(lambda: R.quad_rollout_backward_reference(
-                params, s, a, out, g, DT)),
-            bound_ms(bwd_bytes, BWD_OPS_PER_ROW_STEP * n * HORIZON),
-        ),
-    }
-    for name, (ms, call, plain, (bnd, by)) in timings.items():
-        log(f"[7] {name} B={TIMING_B} k={HORIZON}: kernel device time "
-            f"{ms:.5f} ms, per call with launch {call:.5f} ms, plain twin "
-            f"{plain:.5f} ms, bound {bnd:.6f} ms ({by})")
+    timings = {"quad_rollout_fwd": {}, "quad_rollout_bwd": {}}
+    for n in (TRAIN_B, TIMING_B):
+        s, a, g = rollout_inputs(n, 1, device)
+        out = R.quad_rollout_fwd(s, a, scalars, DT)
+        # each input read once, each output written once, float32
+        fwd_bytes = 4 * n * ((12 + 4 * HORIZON) + 12 * HORIZON)
+        bwd_bytes = 4 * n * ((12 + 4 * HORIZON + 24 * HORIZON)
+                             + (4 * HORIZON + 12))
+        cases = (
+            ("quad_rollout_fwd",
+             lambda: R.quad_rollout_fwd(s, a, scalars, DT),
+             lambda: R.quad_rollout_reference(params, s, a, DT),
+             bound_ms(fwd_bytes, FWD_OPS_PER_ROW_STEP * n * HORIZON)),
+            ("quad_rollout_bwd",
+             lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
+             lambda: R.quad_rollout_backward_reference(params, s, a, out, g,
+                                                       DT),
+             bound_ms(bwd_bytes, BWD_OPS_PER_ROW_STEP * n * HORIZON)),
+        )
+        for name, kernel, plain, (bnd, by) in cases:
+            row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                   "call_ms": time_cuda(kernel), "bound_ms": bnd,
+                   "bound_by": by}
+            if n == TIMING_B:
+                row["plain_ms"] = time_cuda(plain)
+            timings[name][n] = row
+            log(f"[7] {name} B={n} k={HORIZON}: kernel device time "
+                f"{row['ms']:.5f} ms, per call with launch "
+                f"{row['call_ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
+                + (f", plain twin {row['plain_ms']:.5f} ms"
+                   if n == TIMING_B else ""))
+    floors = {n: kernel_device_ms(functools.partial(empty_launch, n),
+                                  "empty_kernel")
+              for n in (TRAIN_B, TIMING_B)}
+    log("[7] launch floor, an empty kernel launched through ctypes on the "
+        "same grid: " + ", ".join(
+            f"B={n} ({-(-n // TILE_ROWS)} blocks of {TILE_ROWS}) "
+            f"{ms:.5f} ms" for n, ms in floors.items()))
     return timings
 
 
-def main():
+def empty_launcher(path):
+    """Load the empty kernel's library ``path`` and launch it once ->
+    launch(n), which launches it on the rollout's grid for a batch of
+    ``n``."""
+    lib = ctypes.CDLL(str(path))
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def launch(n):
+        err = lib.empty_launch(-(-n // TILE_ROWS), TILE_ROWS,
+                               torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+    launch(1)
+    torch.cuda.synchronize()
+    return launch
+
+
+def raw_launchers(lib, n, params, device):
+    """The forward and backward C functions of the rollout library ``lib``
+    on fresh inputs of batch ``n``, k = 10, checked once against the plain
+    versions. They go around the wrappers, so no launch count moves: these
+    runs only compare builds."""
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    scalars = params.kernel_scalars
+    s, a, g = rollout_inputs(n, 1, device)
+    out = torch.empty(n, HORIZON, 12, device=device)
+    ga, gs = torch.empty_like(a), torch.empty_like(s)
+
+    def fwd():
+        R._launch(lib.quad_rollout_fwd, s.data_ptr(), a.data_ptr(),
+                  out.data_ptr(), n, HORIZON, *scalars, DT,
+                  torch.cuda.current_stream().cuda_stream)
+
+    def bwd():
+        R._launch(lib.quad_rollout_bwd, s.data_ptr(), a.data_ptr(),
+                  out.data_ptr(), g.data_ptr(), ga.data_ptr(), gs.data_ptr(),
+                  n, HORIZON, *scalars, DT,
+                  torch.cuda.current_stream().cuda_stream)
+
+    fwd()
+    bwd()
+    ga_ref, gs_ref = R.quad_rollout_backward_reference(params, s, a, out, g,
+                                                       DT)
+    torch.testing.assert_close(
+        out, R.quad_rollout_reference(params, s, a, DT), rtol=RTOL,
+        atol=ATOL)
+    for got, want in ((ga, ga_ref), (gs, gs_ref)):
+        torch.testing.assert_close(
+            got, want, rtol=RTOL, atol=BWD_ATOL_REL * want.abs().max().item())
+    return fwd, bwd
+
+
+def phase_baseline(device, src):
+    """Check the kernels built from ``src`` against the plain versions, then
+    time them and the port's own in turns: baseline, port, port,
+    baseline."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    params = quad_params(device=device)
+    groups = {}
+    for label, name, lib_src in (("baseline", "quad_rollout_baseline", src),
+                                 ("port", "quad_rollout", None)):
+        lib = cuda_lib.load(name, R._SIGNATURES, lib_src)
+        groups[label] = []
+        for n in (TRAIN_B, TIMING_B):
+            fwd, bwd = raw_launchers(lib, n, params, device)
+            groups[label] += [(f"fwd_B{n}", "quad_rollout_fwd_kernel", fwd),
+                              (f"bwd_B{n}", "quad_rollout_bwd_kernel", bwd)]
+        log(f"[8] {label}: matches the plain versions at B = {TRAIN_B} and "
+            f"{TIMING_B}, k = {HORIZON}")
+    turns = {label: [] for label in groups}
+    for label in ("baseline", "port", "port", "baseline"):
+        row = group_device_ms(groups[label])
+        turns[label].append(row)
+        log(f"[8] {label} turn {len(turns[label])}: kernel device ms "
+            + json.dumps(row))
+    for label, rows in turns.items():
+        log(f"[8] {label} mean of its 2 turns: " + json.dumps(
+            {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}))
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline", metavar="OLD.cu",
+                        help="a source with the same C interface, checked "
+                             "and timed in turns with the port's kernels")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    baseline = args.baseline and os.path.abspath(args.baseline)
     os.chdir(ROOT)
     device, _ = phase_device()
-    phase_build()
+    libs = phase_build(baseline)
     worst = phase_kernels(device)
     phase_carried_weights(device)
     launches = phase_training(device)
-    timings = phase_timing(device)
+    timings = phase_timing(device, libs["empty_kernel"])
+    if baseline:
+        phase_baseline(device, baseline)
     kernels = []
-    for name, (ms, _, plain, (bnd, by)) in timings.items():
+    for name, by_batch in timings.items():
+        big, small = by_batch[TIMING_B], by_batch[TRAIN_B]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -463,11 +668,13 @@ def main():
             "replaces": PALLAS_CALL,
             "launches": launches[name],
             "max_abs_err": worst[name],
-            "ms": ms,
-            "plain_ms": plain,
-            "bound_ms": bnd,
-            "bound_by": by,
+            "ms": big["ms"],
+            "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"],
             "library_ms": None,
+            "ms_b8": small["ms"],
+            "bound_ms_b8": small["bound_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,10 @@ DRAG = {
 MODS = pytest.mark.parametrize("mods", [{}, DRAG], ids=["default", "drag"])
 
 
+B_EDGES = [1, 8, 31, 32, 33, 4096, 4097]  # whole and ragged tiles
+K_EDGES = [1, 10, 11, 32]  # around the 10-step chunks
+
+
 def _inputs(B, k=10, seed=0):
     rng = np.random.RandomState(seed)
     states = rng.randn(B, 12).astype(np.float32) * 0.3
@@ -168,6 +172,54 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                            DT)
 
 
+def _offset(x, floats):
+    """A contiguous copy of ``x`` that starts ``floats`` floats into its
+    storage."""
+    flat = torch.zeros(x.numel() + floats, dtype=x.dtype, device=x.device)
+    view = flat[floats:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _wrapper_tensors(B=4, k=3, device="cpu"):
+    """The four tensors the kernel wrappers take, by argument name."""
+    states, actions, grad_out = (torch.from_numpy(x).to(device)
+                                 for x in _inputs(B, k, seed=8))
+    out = torch.zeros(B, k, 12, device=device)
+    return {"states": states, "actions": actions, "states_out": out,
+            "grad_out": grad_out}
+
+
+def _call(t, backward):
+    scalars = quad_params().kernel_scalars
+    if backward:
+        return R.quad_rollout_bwd(t["states"], t["actions"], t["states_out"],
+                                  t["grad_out"], scalars, DT)
+    return R.quad_rollout_fwd(t["states"], t["actions"], scalars, DT)
+
+
+@pytest.mark.parametrize("which,backward", [
+    ("states", False), ("actions", False), ("states", True),
+    ("actions", True), ("states_out", True), ("grad_out", True),
+])
+def test_misaligned_views_are_refused(which, backward):
+    tensors = _wrapper_tensors()
+    tensors[which] = _offset(tensors[which], 1)  # 4 bytes past 16-aligned
+    assert tensors[which].is_contiguous()
+    with pytest.raises(ValueError, match=f"{which} must start at a 16-byte"):
+        _call(tensors, backward)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_aligned_offset_views_pass_the_layout_checks(backward):
+    # one row into a (B + 1, ...) tensor is 48 or 16k bytes in: aligned, so
+    # on the CPU only the device check remains to refuse it
+    tensors = {name: _offset(t, t[0].numel())
+               for name, t in _wrapper_tensors().items()}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _call(tensors, backward)
+
+
 def test_kernel_scalars_follow_params():
     p = quad_params(DRAG)
     kinv, grav, drag, rdj = (p.kernel_scalars[i:i + 3] for i in (0, 3, 6, 9))
@@ -179,6 +231,57 @@ def test_kernel_scalars_follow_params():
     )
 
 
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """``cuda_lib`` with its build directory under ``tmp_path`` and an nvcc
+    stand-in that writes the library (exit 0) or fails (exit 1, when the
+    source holds ``FAIL``); yields the list of command lines it ran."""
+    import subprocess
+
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        if "FAIL" in open(cmd[-1]).read():
+            return subprocess.CompletedProcess(cmd, 1, "", "error")
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("library")
+        return subprocess.CompletedProcess(cmd, 0, "ptxas info", "")
+
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(cuda_lib.subprocess, "run", run)
+    return calls
+
+
+def test_build_compiles_a_given_source_once(tmp_path, fake_nvcc):
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    src = tmp_path / "other.cu"
+    src.write_text("// a kernel")
+    lib, log = cuda_lib.build("other", src)
+    assert lib == tmp_path / "build" / "libother.so"
+    assert lib.read_text() == "library" and log == "ptxas info"
+    assert fake_nvcc[0][-1] == str(src)
+    assert "sm_90a" in " ".join(fake_nvcc[0])
+    # the library is newer than its source: nothing is compiled again
+    assert cuda_lib.build("other", src) == (lib, "")
+    assert len(fake_nvcc) == 1
+
+
+def test_build_raises_on_a_compile_error_and_leaves_no_file(tmp_path,
+                                                            fake_nvcc):
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    src = tmp_path / "broken.cu"
+    src.write_text("FAIL")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build("broken", src)
+    assert list((tmp_path / "build").iterdir()) == []
+
+
 # ---------------------------------------------------------------------------
 # kernels vs plain twins (card only)
 # ---------------------------------------------------------------------------
@@ -186,10 +289,11 @@ def test_kernel_scalars_follow_params():
 
 @pytest.mark.cuda
 @MODS
-@pytest.mark.parametrize("B", [8, 4097])
-def test_forward_kernel_matches_twin(cuda_device, mods, B):
+@pytest.mark.parametrize("k", K_EDGES)
+@pytest.mark.parametrize("B", B_EDGES)
+def test_forward_kernel_matches_twin(cuda_device, mods, B, k):
     params = quad_params(mods, cuda_device)
-    states, actions, _ = _inputs(B, seed=5)
+    states, actions, _ = _inputs(B, k, seed=5)
     s = torch.from_numpy(states).to(cuda_device)
     a = torch.from_numpy(actions).to(cuda_device)
     before = R.FORWARD_LAUNCHES
@@ -203,11 +307,12 @@ def test_forward_kernel_matches_twin(cuda_device, mods, B):
 
 @pytest.mark.cuda
 @MODS
-@pytest.mark.parametrize("B", [8, 4097])
-def test_backward_kernel_matches_plain(cuda_device, mods, B):
+@pytest.mark.parametrize("k", K_EDGES)
+@pytest.mark.parametrize("B", B_EDGES)
+def test_backward_kernel_matches_plain(cuda_device, mods, B, k):
     params = quad_params(mods, cuda_device)
     states, actions, grad_out = (
-        torch.from_numpy(x).to(cuda_device) for x in _inputs(B, seed=6)
+        torch.from_numpy(x).to(cuda_device) for x in _inputs(B, k, seed=6)
     )
     out = R.quad_rollout_fwd(states, actions, params.kernel_scalars, DT)
     before = R.BACKWARD_LAUNCHES
@@ -238,3 +343,43 @@ def test_quad_rollout_autograd_on_card_matches_twin(cuda_device):
     assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (fwd0 + 1, bwd0 + 1)
     _assert_grad_close(a.grad.cpu().numpy(), ga_ref.numpy())
     _assert_grad_close(s.grad.cpu().numpy(), gs_ref.numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_take_an_aligned_offset_view(cuda_device):
+    # big[1:] of (B + 1, ...) tensors: contiguous, 48 or 16k bytes in
+    params = quad_params(DRAG, cuda_device)
+    fresh = _wrapper_tensors(B=33, k=11, device=cuda_device)
+    fresh["states_out"] = R.quad_rollout_fwd(
+        fresh["states"], fresh["actions"], params.kernel_scalars, DT)
+    views = {name: _offset(t, t[0].numel()) for name, t in fresh.items()}
+    out = R.quad_rollout_fwd(views["states"], views["actions"],
+                             params.kernel_scalars, DT)
+    ga, gs = R.quad_rollout_bwd(views["states"], views["actions"],
+                                views["states_out"], views["grad_out"],
+                                params.kernel_scalars, DT)
+    torch.cuda.synchronize()
+    want = R.quad_rollout_reference(params, fresh["states"],
+                                    fresh["actions"], DT)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    ga_ref, gs_ref = R.quad_rollout_backward_reference(
+        params, fresh["states"], fresh["actions"], fresh["states_out"],
+        fresh["grad_out"], DT,
+    )
+    _assert_grad_close(ga.cpu().numpy(), ga_ref.cpu().numpy())
+    _assert_grad_close(gs.cpu().numpy(), gs_ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_kernels_refuse_a_misaligned_view(cuda_device, backward):
+    tensors = _wrapper_tensors(B=33, k=11, device=cuda_device)
+    before = (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES)
+    for name in tensors:
+        if name in ("states_out", "grad_out") and not backward:
+            continue
+        bad = dict(tensors, **{name: _offset(tensors[name], 1)})
+        with pytest.raises(ValueError, match=f"{name} must start at a 16"):
+            _call(bad, backward)
+    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == before
