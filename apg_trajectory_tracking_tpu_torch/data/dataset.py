@@ -1,5 +1,5 @@
-"""Training buffers and quad state featurization (counterpart of the JAX
-package's ``data/dataset.py``).
+"""Training buffers and state featurization for the quad and the wing
+(counterpart of the JAX package's ``data/dataset.py``).
 
 The buffers hold a sampled segment ``[0:num_sampled]`` and a self-play ring
 ``[num_sampled:]`` written at a moving cursor, as tensors on the training
@@ -14,6 +14,26 @@ import numpy as np
 import torch
 
 from apg_trajectory_tracking_tpu_torch.ops.rotations import world_to_body_matrix
+
+# fixed normalization stats of the fixed-wing state
+WING_MEAN = np.array(
+    [
+        0.0, 0.0, 0.0, 11.525899887084961, -0.00016766408225521445,
+        0.16617104411125183, 0.007394296582788229, 0.018172707409,
+        0.020353179425001144, -0.0005361468647606671,
+        0.01662314310669899, 0.004487641621381044,
+    ],
+    dtype=np.float32,
+)
+WING_STD = np.array(
+    [
+        16.626325607299805, 0.8449159860610962, 0.8879243731498718,
+        0.6243225932121277, 0.28072822093963623, 0.29176747798,
+        0.04499124363064766, 0.10370047390460968, 0.049977313727,
+        0.06449887901544571, 0.27508440613746643, 0.05634994804859,
+    ],
+    dtype=np.float32,
+)
 
 
 def quad_state_features(states):
@@ -48,6 +68,36 @@ def quad_prepare_data(states, ref_states):
     return in_state, current, in_ref, rel_ref
 
 
+def wing_prepare_data(states, ref_pos, mean, std, dt=0.05, horizon=10):
+    """Featurize a (state, target point) batch for the wing controller.
+
+    The normalized state drops the position. The loss target is a ramp
+    from the current position toward the unit target direction at 12 m/s
+    (``12 * dt`` per step); the net's reference input is the ramp's last
+    point relative to the vehicle. The direction's norm is floored at 1e-6,
+    so a vehicle on its waypoint gives no NaN.
+
+    Args:
+        states: (B, 12) raw wing states.
+        ref_pos: (B, 3) absolute target waypoints.
+        mean, std: (12,) normalization stats on the states' device.
+    Returns:
+        (normed_state (B, 9), states (B, 12) unchanged, rel_ref (B, 3),
+         target_pos (B, horizon, 3)).
+    """
+    normed = ((states - mean) / std)[:, 3:]
+    rel = ref_pos - states[:, :3]
+    direction = rel / torch.clamp(
+        torch.linalg.norm(rel, dim=1, keepdim=True), min=1e-6
+    )
+    steps = torch.arange(1, horizon + 1, dtype=states.dtype,
+                         device=states.device) * (12.0 * dt)
+    target_pos = (states[:, None, :3]
+                  + direction[:, None, :] * steps[None, :, None])
+    rel_ref = target_pos[:, -1] - states[:, :3]
+    return normed, states, rel_ref, target_pos
+
+
 @dataclasses.dataclass
 class QuadBuffers:
     """``states`` (N, 12), ``refs`` (N, ref_len, 9); rows ``[0:num_sampled]``
@@ -76,6 +126,37 @@ def make_quad_buffers(states, refs, num_sampled, device="cpu"):
         eval_counter=0,
         mean=states.mean(axis=0),
         std=states.std(axis=0),
+    )
+
+
+@dataclasses.dataclass
+class WingBuffers:
+    """``states`` (N, 12), ``refs`` (N, 3) target waypoints; the same
+    sampled segment and self-play ring as :class:`QuadBuffers`, with the
+    fixed ``WING_MEAN``/``WING_STD`` as stats."""
+
+    states: torch.Tensor
+    refs: torch.Tensor
+    num_sampled: int
+    num_self_play: int
+    eval_counter: int
+    mean: np.ndarray
+    std: np.ndarray
+
+
+def make_wing_buffers(states, refs, num_self_play, device="cpu"):
+    """Buffers from ``sample_training_data`` output (numpy arrays); the
+    last ``num_self_play`` rows form the ring."""
+    states = np.asarray(states, dtype=np.float32)
+    refs = np.asarray(refs, dtype=np.float32)
+    return WingBuffers(
+        states=torch.as_tensor(states, device=device),
+        refs=torch.as_tensor(refs, device=device),
+        num_sampled=int(states.shape[0] - num_self_play),
+        num_self_play=int(num_self_play),
+        eval_counter=0,
+        mean=WING_MEAN,
+        std=WING_STD,
     )
 
 

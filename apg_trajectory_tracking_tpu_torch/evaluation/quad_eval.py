@@ -8,6 +8,10 @@ All test trajectories roll out in lockstep, one action at a time through
     onto the reference; at test time the episode is marked done and its
     state frozen;
   * steps past the reference's end (i > ref_len) are masked invalid.
+
+A recurrent controller threads a carry through the loop (``net_apply`` +
+``net_carry``) and sees the first ``net_window`` rows of a ``window_len``
+window (the recurrent modes carry a 2 * horizon window).
 """
 
 import numpy as np
@@ -25,6 +29,10 @@ from apg_trajectory_tracking_tpu_torch.evaluation.stats import (
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import array_ref_window
 
 
+def _feedforward_apply(net, carry, in_state, in_ref):
+    return carry, net(in_state, in_ref)
+
+
 @torch.no_grad()
 def follow_trajectories(
     net,
@@ -37,20 +45,30 @@ def follow_trajectories(
     max_steps=251,
     dt=0.1,
     test_time=False,
+    net_apply=_feedforward_apply,
+    net_carry=None,
+    window_len=None,
+    net_window=None,
 ):
     """Roll out the controller on a batch of reference trajectories.
 
     Args:
-        net: ControlNet on the references' device.
+        net: the controller on the references' device.
         dyn_params: QuadParams on the same device.
         references: (n_test, T, 9) prepared references [pos, att, vel].
         ref_len: usable reference length (the same for all tests).
+        net_apply: (net, carry, in_state, in_ref) -> (carry, logits).
+        net_carry: the initial carry (None for a feed-forward net).
+        window_len: rows of each reference window (horizon by default).
+        net_window: rows of it that the net sees (horizon by default).
     Returns dict with:
         divergences: (n_test, max_steps) distance to the reference point.
         valid: (n_test, max_steps) step-executed mask.
         states: (n_test, max_steps, 12) visited states (for self-play).
-        windows: (n_test, max_steps, horizon, 9) matching windows.
+        windows: (n_test, max_steps, window_len, 9) matching windows.
     """
+    window_len = window_len or horizon
+    net_window = net_window or horizon
     n_test, T = references.shape[0], references.shape[1]
     state = torch.zeros((n_test, 12), dtype=torch.float32,
                         device=references.device)
@@ -59,9 +77,11 @@ def follow_trajectories(
 
     divs, valid, states, windows = [], [], [], []
     for i in range(max_steps):
-        window = array_ref_window(references, i, horizon)
+        window = array_ref_window(references, i, window_len)
         in_state, _, in_ref, _ = quad_prepare_data(state, window)
-        actions = torch.sigmoid(net(in_state, in_ref)).reshape(n_test, -1, 4)
+        net_carry, logits = net_apply(net, net_carry, in_state,
+                                      in_ref[:, :net_window])
+        actions = torch.sigmoid(logits).reshape(n_test, -1, 4)
         new_state = quad_step(dyn_params, state, actions[:, 0], dt)
 
         stable = quad_is_stable(new_state, thresh_stable)
@@ -106,19 +126,26 @@ def run_eval(
     max_steps=251,
     dt=0.1,
     test_time=False,
+    net_apply=_feedforward_apply,
+    net_carry=None,
+    window_len=None,
+    net_window=None,
 ):
     """Closed-loop eval on the net's device -> (metrics dict, rollout dict).
 
-    ``references`` may be a numpy array or a tensor; it and ``dyn_params``
-    are moved to the net's device.
+    ``references`` may be a numpy array or a tensor; it, ``dyn_params`` and
+    ``net_carry`` are moved to the net's device.
     """
     device = next(net.parameters()).device
     references = torch.as_tensor(references, dtype=torch.float32,
                                  device=device)
+    if net_carry is not None:
+        net_carry = tuple(t.to(device) for t in net_carry)
     roll = follow_trajectories(
         net, dyn_params.to(device), references, ref_len,
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
-        max_steps=max_steps, dt=dt, test_time=test_time,
+        max_steps=max_steps, dt=dt, test_time=test_time, net_apply=net_apply,
+        net_carry=net_carry, window_len=window_len, net_window=net_window,
     )
     metrics = metrics_from_rollout(
         roll["divergences"].cpu().numpy(), roll["valid"].cpu().numpy(),

@@ -1,0 +1,205 @@
+"""Batched closed-loop fixed-wing evaluation: fly to a waypoint
+(counterpart of the JAX package's ``evaluation/wing_eval.py``).
+
+All episodes fly in lockstep in a fixed-length masked loop. Crossing the
+target's x is a pass; leaving the start->target line by more than
+``thresh_div`` (or losing attitude stability) is a divergence. At test
+time either event records a target distance and ends the episode. At train
+time a pass ends the episode, while a divergence records ``thresh_div``
+and resets the vehicle onto the line, flying at ``DES_SPEED`` toward the
+target.
+"""
+
+import torch
+
+from apg_trajectory_tracking_tpu_torch.data.dataset import wing_prepare_data
+from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+    wing_is_stable,
+    wing_step,
+)
+from apg_trajectory_tracking_tpu_torch.evaluation.stats import bootstrap_ci
+from apg_trajectory_tracking_tpu_torch.trajectory.refs import project_to_line
+
+DES_SPEED = 11.5
+
+
+def waypoint_step_events(state, new_state, targets, line_start, done,
+                         dsum, dcnt, npass, thresh_div, thresh_stable):
+    """One control step of test-time pass/divergence accounting.
+
+    Crossing the target's x records the distance of the target to the
+    segment just flown; diverging records the current distance to the
+    target; either ends the episode, and an ended episode keeps its state.
+
+    Returns (next_state, new_done, dsum, dcnt, npass, active).
+    """
+    stable = wing_is_stable(new_state, thresh_stable)
+    pos = new_state[:, :3]
+    drone_on_line = project_to_line(line_start, targets, pos)
+    div = torch.linalg.norm(drone_on_line - pos, dim=1)
+    passed = pos[:, 0] > targets[:, 0]
+    prev_pos = state[:, :3]
+    target_on_traj = project_to_line(prev_pos, pos, targets)
+    pass_div = torch.linalg.norm(target_on_traj - targets, dim=1)
+    diverged = (div > thresh_div) | ~stable
+
+    active = ~done
+    event_div = torch.where(
+        passed, pass_div, torch.linalg.norm(pos - targets, dim=1)
+    )
+    event = active & (passed | diverged)
+    dsum = dsum + torch.where(event, event_div, 0.0)
+    dcnt = dcnt + event.to(torch.int32)
+    new_done = done | passed | diverged
+    npass = npass | (active & passed)
+    next_state = torch.where(done[:, None], state, new_state)
+    return next_state, new_done, dsum, dcnt, npass, active
+
+
+def finalize_waypoint_counts(dsum, dcnt, thresh_div):
+    """Episodes that never ended get the thresh_div penalty; the count is
+    floored at 1 for the per-episode mean."""
+    dsum = dsum + torch.where(dcnt == 0, thresh_div, 0.0)
+    return dsum, torch.clamp(dcnt, min=1)
+
+
+@torch.no_grad()
+def fly_to_point(
+    net,
+    dyn_params,
+    targets,
+    mean,
+    std,
+    thresh_div=4.0,
+    thresh_stable=0.4,
+    horizon=10,
+    max_steps=1000,
+    dt=0.05,
+    test_time=False,
+):
+    """Fly a batch of episodes from level flight toward their targets.
+
+    Args:
+        net: the dense ControlNet on the targets' device.
+        dyn_params: WingParams on the same device.
+        targets: (n, 3) waypoints (x ~ 50, y/z ~ +-5).
+        mean, std: (12,) state normalization stats on the same device.
+    Returns dict:
+        div_target_sum/cnt: per-episode sum and count of target distances;
+        passed: (n,) whether the episode passed its target;
+        states/valid: (n, max_steps, 12) visited states and (n, max_steps)
+            the steps taken before the episode ended, for self-play;
+        steps_alive: (n,) steps before the episode ended.
+    """
+    n = targets.shape[0]
+    device = targets.device
+    state = torch.zeros((n, 12), dtype=torch.float32, device=device)
+    state[:, 3] = DES_SPEED
+    line_start = state[:, :3].clone()
+    done = torch.zeros(n, dtype=torch.bool, device=device)
+    dsum = torch.zeros(n, dtype=torch.float32, device=device)
+    dcnt = torch.zeros(n, dtype=torch.int32, device=device)
+    npass = torch.zeros(n, dtype=torch.bool, device=device)
+
+    states, valid = [], []
+    for _ in range(max_steps):
+        normed, _, rel_ref, _ = wing_prepare_data(
+            state, targets, mean, std, dt=dt, horizon=horizon
+        )
+        actions = torch.sigmoid(net(normed, rel_ref)).reshape(n, -1, 4)
+        new_state = wing_step(dyn_params, state, actions[:, 0], dt)
+
+        if test_time:
+            next_state, done_next, dsum, dcnt, npass, active = (
+                waypoint_step_events(
+                    state, new_state, targets, line_start, done, dsum,
+                    dcnt, npass, thresh_div, thresh_stable,
+                )
+            )
+        else:
+            stable = wing_is_stable(new_state, thresh_stable)
+            pos = new_state[:, :3]
+            drone_on_line = project_to_line(line_start, targets, pos)
+            div = torch.linalg.norm(drone_on_line - pos, dim=1)
+            passed = pos[:, 0] > targets[:, 0]
+            target_on_traj = project_to_line(state[:, :3], pos, targets)
+            pass_div = torch.linalg.norm(target_on_traj - targets, dim=1)
+            diverged = (div > thresh_div) | ~stable
+
+            active = ~done
+            event_pass = active & passed
+            event_div = active & diverged & ~passed
+            dsum = dsum + torch.where(event_pass, pass_div, 0.0)
+            dsum = dsum + torch.where(event_div, thresh_div, 0.0)
+            dcnt = (dcnt + event_pass.to(torch.int32)
+                    + event_div.to(torch.int32))
+            vec = targets - drone_on_line
+            vec_unit = vec / torch.linalg.norm(vec, dim=1, keepdim=True)
+            reset_state = torch.cat(
+                [drone_on_line, vec_unit * DES_SPEED,
+                 torch.zeros_like(new_state[:, 6:])], dim=1
+            )
+            next_state = torch.where((diverged & ~passed)[:, None],
+                                     reset_state, new_state)
+            next_state = torch.where(done[:, None], state, next_state)
+            done_next = done | passed
+            npass = npass | event_pass
+
+        states.append(state)
+        valid.append(active)
+        state, done = next_state, done_next
+
+    dsum, dcnt = finalize_waypoint_counts(dsum, dcnt, thresh_div)
+    valid = torch.stack(valid, dim=1)
+    return {
+        "div_target_sum": dsum,
+        "div_target_cnt": dcnt,
+        "passed": npass,
+        "states": torch.stack(states, dim=1),
+        "valid": valid,
+        "steps_alive": valid.sum(dim=1),
+    }
+
+
+def run_eval(
+    net,
+    dyn_params,
+    generator,
+    mean,
+    std,
+    nr_test=10,
+    x_dist=50.0,
+    x_std=5.0,
+    thresh_div=4.0,
+    thresh_stable=0.4,
+    horizon=10,
+    max_steps=1000,
+    dt=0.05,
+    test_time=False,
+):
+    """Fly ``nr_test`` episodes to targets at x = ``x_dist`` with y and z
+    drawn from U(-x_std, x_std) by ``generator``, on the net's device ->
+    (metrics, rollout dict, targets). ``mean_success`` is the mean over
+    episodes of each episode's mean target distance (lower is better)."""
+    device = next(net.parameters()).device
+    yz = (torch.rand((nr_test, 2), generator=generator) - 0.5) * 2 * x_std
+    targets = torch.cat(
+        [torch.full((nr_test, 1), x_dist), yz], dim=1
+    ).to(device=device, dtype=torch.float32)
+    roll = fly_to_point(
+        net, dyn_params.to(device), targets,
+        torch.as_tensor(mean, device=device),
+        torch.as_tensor(std, device=device),
+        thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
+        max_steps=max_steps, dt=dt, test_time=test_time,
+    )
+    per_ep = (roll["div_target_sum"].cpu().numpy()
+              / roll["div_target_cnt"].cpu().numpy())
+    metrics = {
+        "mean_success": float(per_ep.mean()),
+        "std_success": float(per_ep.std()),
+        "mean_steps_alive": float(roll["steps_alive"].float().mean()),
+        "n": int(per_ep.size),
+        "mean_success_ci": list(bootstrap_ci(per_ep)),
+    }
+    return metrics, roll, targets

@@ -1,5 +1,6 @@
-"""MPC-cost-aligned tracking loss (counterpart of the JAX package's
-``losses.py``). Sums over batch, horizon and dims, not means."""
+"""MPC-cost-aligned tracking losses of the quad and the wing (counterpart
+of the JAX package's ``losses.py``). Sums over batch, horizon and dims,
+not means."""
 
 import torch
 
@@ -29,3 +30,23 @@ def quad_mpc_loss(states, ref_states, action_seq):
         + 0.1 * u_rates_loss
         + 5.0 * u_thrust_loss
     )
+
+
+def fixed_wing_mpc_loss(drone_states, linear_reference, action_seq):
+    """Fixed-wing k-step tracking loss: pos 10, and 0.1 on the three
+    control surfaces' distance from 0.5.
+
+    Args:
+        drone_states: (B, k, 12) unrolled states.
+        linear_reference: (B, k, 3) target positions.
+        action_seq: (B, k, 4) normalized actions.
+    """
+    action_loss = torch.sum((action_seq[:, :, 1:] - 0.5) ** 2)
+    pos_loss = torch.sum((drone_states[:, :, :3] - linear_reference) ** 2)
+    return 10.0 * pos_loss + 0.1 * action_loss
+
+
+def fixed_wing_last_loss(drone_states, linear_reference):
+    """Final-position fixed-wing loss: (B, 12) states against (B, 3)
+    targets."""
+    return torch.sum((drone_states[:, :3] - linear_reference) ** 2)

@@ -1,21 +1,27 @@
-"""Quadrotor APG training, concurrent mode (counterpart of the JAX
-package's ``training/train_quad.py``).
+"""Quadrotor APG training in the concurrent, autoregressive and LSTM
+modes (counterpart of the JAX package's ``training/train_quad.py``).
 
-Each train step featurizes a (state, reference window) batch, runs the
-controller, unrolls the dynamics for k steps with :func:`quad_rollout`
-(the fused CUDA kernels on the card, the plain twin on the CPU), scores the
-unroll with :func:`quad_mpc_loss`, backpropagates through it and takes an
-SGD-momentum step. Around it, :class:`TrainQuad` runs the epoch loop with
-the thresh_div and speed curricula, closed-loop evaluation, self-play
-insertion, periodic resampling and best-checkpoint selection.
+A concurrent train step featurizes a (state, reference window) batch, runs
+the controller once for all k actions, unrolls the dynamics for k steps
+with :func:`quad_rollout` (the fused CUDA kernels on the card, the plain
+twin on the CPU), scores the unroll with :func:`quad_mpc_loss`,
+backpropagates through it and takes an SGD-momentum step. A recurrent step
+(autoregressive or LSTM) re-featurizes and runs the net before each of the
+k dynamics steps, each one a :func:`quad_rollout` at k = 1. Around them,
+:class:`TrainQuad` runs the epoch loop with the thresh_div and speed
+curricula, closed-loop evaluation, self-play insertion, periodic
+resampling and best-checkpoint selection.
 
 Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.train_quad \
-        -s NAME --epochs N [--data_dir D] [--cpu]
+        -s NAME [-m concurrent|autoregressive|LSTM] [--epochs N] \
+        [--seed S] [--no-curriculum] [--smoke] [-o KEY=VALUE ...] \
+        [--data_dir D] [--cpu]
 """
 
 import argparse
+import json
 import os
 import time
 
@@ -26,6 +32,7 @@ from apg_trajectory_tracking_tpu_torch.data.dataset import (
     insert_self_play,
     make_quad_buffers,
     quad_prepare_data,
+    quad_state_features,
     replace_sampled,
 )
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
@@ -35,6 +42,11 @@ from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
 from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import run_eval
 from apg_trajectory_tracking_tpu_torch.losses import quad_mpc_loss
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.models.rnn import (
+    LSTMNet,
+    init_lstm_state,
+    lstm_net_apply,
+)
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     ensure_trajectory_bank,
@@ -87,6 +99,62 @@ def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
     return step
 
 
+def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
+                   lstm_hidden=8):
+    """Loss of one autoregressive or LSTM batch: at inner step k the net
+    sees the window ``refs2h[:, k:k+horizon]`` re-centred on the current
+    position, emits one action, and one dynamics step follows. An LSTM
+    starts from a zero carry.
+
+    Args:
+        states: (B, 12) raw states; refs2h: (B, 2 * horizon, 9) windows.
+    """
+    carry = (init_lstm_state(states.shape[0], lstm_hidden,
+                             device=states.device) if lstm else None)
+    # drone-centric frame: references relative to the start position, the
+    # start position zeroed
+    rel_refs = torch.cat(
+        [refs2h[:, :, :3] - states[:, None, :3], refs2h[:, :, 3:]], dim=2
+    )
+    state = torch.cat([torch.zeros_like(states[:, :3]), states[:, 3:]],
+                      dim=1)
+    inter, actions = [], []
+    for k in range(horizon):
+        window = rel_refs[:, k:k + horizon]
+        rel_pos = window[:, :, :3] - state[:, None, :3]
+        in_state = quad_state_features(state)
+        vel_minus = window[:, :, 6:9] - state[:, None, 6:9]
+        in_ref = torch.cat([rel_pos, window[:, :, 6:9], vel_minus], dim=2)
+        if lstm:
+            carry, logits = net(carry, in_state, in_ref)
+        else:
+            logits = net(in_state, in_ref)
+        action = torch.sigmoid(logits)
+        # one step through the rollout: a fresh (B, 1, 4) action and the
+        # (B, 12) row block of the last output, both 16-byte aligned
+        state = quad_rollout(dyn_params, state, action[:, None], dt)[:, 0]
+        inter.append(state)
+        actions.append(action)
+    return quad_mpc_loss(torch.stack(inter, dim=1), rel_refs[:, :horizon],
+                         torch.stack(actions, dim=1))
+
+
+def build_recurrent_step(net, optimizer, dt, horizon, lstm=False,
+                         lstm_hidden=8):
+    """-> ``step(dyn_params, states, refs2h) -> loss``: one SGD step of
+    ``optimizer`` on ``net`` in the autoregressive or LSTM mode."""
+
+    def step(dyn_params, states, refs):
+        optimizer.zero_grad(set_to_none=True)
+        loss = recurrent_loss(net, dyn_params, states, refs, dt, horizon,
+                              lstm, lstm_hidden)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def _not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1: {item})"
@@ -94,24 +162,28 @@ def _not_ported(what, item):
 
 
 class TrainQuad:
-    """Host-side orchestration of concurrent-mode quad APG training."""
+    """Host-side orchestration of quad APG training."""
 
     def __init__(
         self,
         config=None,
+        train_mode=None,
         seed=0,
         save_name="test",
         data_dir="data/traj_data",
+        modified_params=None,
+        eval_modified_params=None,
+        curriculum=True,
         base_model=None,
         minjerk_mix=0.0,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("quad"))
-        mode = cfg.get("train_mode", "concurrent")
-        if mode in ("autoregressive", "LSTM"):
-            raise _not_ported(f"train_mode {mode!r}", "recurrent modes")
-        if mode != "concurrent":
+        if train_mode is not None:
+            cfg["train_mode"] = train_mode
+        self.mode = cfg.get("train_mode", "concurrent")
+        if self.mode not in ("concurrent", "autoregressive", "LSTM"):
             raise ValueError(
                 "train_mode must be concurrent, autoregressive, or LSTM"
             )
@@ -126,32 +198,63 @@ class TrainQuad:
         self.horizon = cfg["horizon"]
         self.batch_size = cfg["batch_size"]
         self.action_dim = cfg["action_dim"]
-        self.ref_length = self.horizon
+        # concurrent: a horizon-long window; recurrent: 2 * horizon
+        self.ref_length = (
+            self.horizon if self.mode == "concurrent" else 2 * self.horizon
+        )
+        self.curriculum = curriculum
         self.thresh_div = cfg["thresh_div_start"]
         self.thresh_stable = cfg["thresh_stable_start"]
         # the speed curriculum starts at 0.2; the training data keeps the
         # config's speed factor
-        self.speed_factor = 0.2
+        self.speed_factor = 0.2 if curriculum else cfg["speed_factor"]
         self.data_speed_factor = cfg["speed_factor"]
-        self.dyn = quad_params(cfg.get("modified_params", {}), self.device)
+        mp = modified_params or cfg.get("modified_params", {})
+        self.train_dyn = quad_params(mp, self.device)
+        # eval_modified_params: eval and self-play rollouts fly a
+        # mismatched plant while BPTT uses the analytic model
+        self.eval_dyn = quad_params(
+            eval_modified_params if eval_modified_params is not None else mp,
+            self.device,
+        )
         self.bank = load_trajectory_bank(ensure_trajectory_bank(data_dir))
+        self.test_bank = load_trajectory_bank(data_dir, test=True)
 
         # numpy draws (data sampling, eval references) follow the JAX
         # trainer's RandomState(seed); the net init and minibatch shuffles
         # draw from a torch generator
         self.rng = np.random.RandomState(seed)
         self.generator = torch.Generator().manual_seed(seed)
-        self.net = ControlNet(
-            IN_STATE_SIZE, self.horizon, cfg["ref_dim"],
-            self.action_dim * self.horizon, hidden=cfg.get("hidden", 64),
-            generator=self.generator,
-        ).to(self.device)
+        if self.mode == "LSTM":
+            self.lstm_hidden = cfg.get("hidden", 8)
+            self.net = LSTMNet(
+                IN_STATE_SIZE, self.horizon, cfg["ref_dim"],
+                self.action_dim, hidden=self.lstm_hidden,
+                generator=self.generator,
+            )
+        else:
+            out_dim = self.action_dim * (
+                self.horizon if self.mode == "concurrent" else 1
+            )
+            self.net = ControlNet(
+                IN_STATE_SIZE, self.horizon, cfg["ref_dim"], out_dim,
+                hidden=cfg.get("hidden", 64), generator=self.generator,
+            )
+        self.net = self.net.to(self.device)
         self.optimizer = sgd_momentum(
             self.net.parameters(), cfg["learning_rate_controller"]
         )
-        self._train_step = build_concurrent_step(
-            self.net, self.optimizer, self.dt, self.horizon, self.action_dim
-        )
+        if self.mode == "concurrent":
+            self._train_step = build_concurrent_step(
+                self.net, self.optimizer, self.dt, self.horizon,
+                self.action_dim,
+            )
+        else:
+            self._train_step = build_recurrent_step(
+                self.net, self.optimizer, self.dt, self.horizon,
+                lstm=self.mode == "LSTM",
+                lstm_hidden=getattr(self, "lstm_hidden", 8),
+            )
         self.steps_taken = 0
 
         # epoch_size sampled rows + self_play * epoch_size ring slots
@@ -174,27 +277,39 @@ class TrainQuad:
         self.successes = []
         self.first_epoch_with_this_vel = 0
 
-    def _eval_references(self, nr_test):
-        """nr_test random training-bank references at the current
-        curriculum speed, lifted by z += 3."""
-        idx = self.rng.randint(len(self.bank), size=nr_test)
+    def _eval_references(self, nr_test, test_time=False):
+        """nr_test random references of the training (or, at test time,
+        the test) bank at the current curriculum speed, lifted by z += 3."""
+        bank = self.test_bank if test_time else self.bank
+        idx = self.rng.randint(len(bank), size=nr_test)
         refs = np.stack(
-            [prepare_trajectory(self.bank[i], self.dt, self.speed_factor)
+            [prepare_trajectory(bank[i], self.dt, self.speed_factor)
              for i in idx]
         )
         refs[:, :, 2] += 3.0
         return refs, refs.shape[1] - self.horizon
 
-    def evaluate(self, epoch, nr_test=10):
-        """Train-time closed-loop eval (reset on divergence): feeds the
-        self-play ring, the thresh_div curriculum and checkpoint choice."""
-        refs, ref_len = self._eval_references(nr_test)
+    def evaluate(self, epoch, nr_test=10, test_time=False):
+        """Closed-loop eval (train time: reset on divergence) that feeds
+        the self-play ring, the thresh_div curriculum and checkpoint
+        choice."""
+        refs, ref_len = self._eval_references(nr_test, test_time)
+        recurrent = {}
+        if self.mode == "LSTM":
+            recurrent["net_apply"] = lstm_net_apply
+            recurrent["net_carry"] = init_lstm_state(
+                nr_test, self.lstm_hidden, device=self.device
+            )
+        if self.ref_length != self.horizon:
+            recurrent["window_len"] = self.ref_length
         metrics, roll = run_eval(
-            self.net, self.dyn, refs, ref_len,
+            self.net, self.eval_dyn, refs, ref_len,
             thresh_div=self.thresh_div, thresh_stable=self.thresh_stable,
-            horizon=self.horizon, dt=self.dt,
+            horizon=self.horizon, dt=self.dt, test_time=test_time,
+            **recurrent,
         )
-        self._self_play_insert(roll)
+        if not test_time:
+            self._self_play_insert(roll)
         self.logger.log_dict(metrics)
         self.logger.log("thresh_div", self.thresh_div)
 
@@ -239,6 +354,8 @@ class TrainQuad:
     def _speed_curriculum(self, epoch):
         """Raise the replay speed by 0.1 (up to 0.4) after five good epochs
         or 100 epochs at this speed."""
+        if not self.curriculum:
+            return
         current_possible = 1000 / (self.speed_factor / self.dt)
         self.successes.append(self.logger.results["mean_success"][-1])
         advance = (
@@ -259,7 +376,7 @@ class TrainQuad:
         ).to(self.device)
         t0 = time.perf_counter()
         losses = torch.stack([
-            self._train_step(self.dyn, self.buffers.states[b],
+            self._train_step(self.train_dyn, self.buffers.states[b],
                              self.buffers.refs[b])
             for b in idx
         ])
@@ -315,22 +432,52 @@ class TrainQuad:
         self.logger.finalize()
 
 
+def parse_overrides(parser, items):
+    """``KEY=VALUE`` strings -> {key: JSON-parsed value, or the raw
+    string}."""
+    overrides = {}
+    for item in items:
+        key, sep, raw = item.partition("=")
+        if not sep:
+            parser.error(f"--override expects KEY=VALUE, got {item!r}")
+        try:
+            overrides[key] = json.loads(raw)
+        except json.JSONDecodeError:
+            overrides[key] = raw
+    return overrides
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train a quadrotor APG controller (concurrent mode) "
-                    "with the PyTorch port."
+        description="Train a quadrotor APG controller with the PyTorch port."
     )
     parser.add_argument("-s", "--save_name", default="test")
     parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("-m", "--mode", default="concurrent",
+                        choices=["concurrent", "autoregressive", "LSTM"])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no-curriculum", action="store_true")
+    parser.add_argument("--smoke", action="store_true",
+                        help="tiny run: 2 epochs, small dataset")
+    parser.add_argument("-o", "--override", action="append", default=[],
+                        metavar="KEY=VALUE",
+                        help="override a config key (JSON-parsed value; "
+                             "repeatable), e.g. -o speed_factor=0.4")
     parser.add_argument("--data_dir", default="data/traj_data",
                         help="trajectory bank directory (generated on "
                              "first use)")
     parser.add_argument("--cpu", action="store_true",
                         help="train on the CPU instead of the card")
     args = parser.parse_args(argv)
+    overrides = {}
+    if args.smoke:
+        overrides = {"epoch_size": 64, "nr_epochs": 2, "self_play": 1}
+    overrides.update(parse_overrides(parser, args.override))
     trainer = TrainQuad(
-        load_config("quad"), save_name=args.save_name,
-        data_dir=args.data_dir, device="cpu" if args.cpu else "cuda",
+        {**load_config("quad"), **overrides}, train_mode=args.mode,
+        seed=args.seed, save_name=args.save_name,
+        curriculum=not args.no_curriculum, data_dir=args.data_dir,
+        device="cpu" if args.cpu else "cuda",
     )
     trainer.fit(args.epochs)
 

@@ -1,5 +1,6 @@
-"""Array-backed reference windows (counterpart of ``array_ref_window`` in
-the JAX package's ``trajectory/refs.py``)."""
+"""Array-backed reference windows and the projection onto a line
+(counterparts of ``array_ref_window`` and ``project_to_line`` in the JAX
+package's ``trajectory/refs.py``)."""
 
 import torch
 
@@ -24,3 +25,14 @@ def array_ref_window(reference, ind, horizon):
     pad_row[..., :3] = reference[..., -1:, :3]
     valid = (idx < T)[:, None]
     return torch.where(valid, window, pad_row)
+
+
+def project_to_line(a, b, p):
+    """Projection of ``p`` onto the line through ``a`` and ``b``; ``a`` when
+    the two points coincide. Batched over leading dims of (..., 3) inputs."""
+    ab = b - a
+    denom = torch.sum(ab**2, dim=-1, keepdim=True)
+    t = torch.sum((p - a) * ab, dim=-1, keepdim=True) / torch.where(
+        denom == 0, 1.0, denom
+    )
+    return torch.where(denom == 0, a, a + t * ab)

@@ -14,12 +14,13 @@ import os
 import numpy as np
 import torch
 
-from apg_trajectory_tracking_tpu_torch.models.mlp import (
-    control_net_from_jax,
-    control_net_to_jax,
+from apg_trajectory_tracking_tpu_torch.models.common import (
     jax_key,
-    module_to_jax,
+    net_to_jax,
+    tensors_from_jax,
 )
+from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_from_jax
+from apg_trajectory_tracking_tpu_torch.models.rnn import lstm_net_from_jax
 from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
 
 OPT_PREFIX = "[0].trace"
@@ -54,40 +55,42 @@ def load_config(save_dir):
 
 
 def momentum_to_jax(net, optimizer):
-    """The optimizer's momentum buffers as optax trace arrays (zeros before
-    the first step, like a fresh optax state)."""
-    tensors = {}
-    for name, layer in net.named_children():
-        bufs = []
-        for p in (layer.weight, layer.bias):
-            buf = optimizer.state.get(p, {}).get("momentum_buffer")
-            bufs.append(torch.zeros_like(p) if buf is None else buf)
-        tensors[name] = bufs
-    return module_to_jax(tensors, prefix=OPT_PREFIX)
+    """The optimizer's momentum buffers as optax trace arrays, keyed as the
+    weights under ``[0].trace`` (zeros before the first step, like a fresh
+    optax state)."""
+
+    def buffer(p):
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        return torch.zeros_like(p) if buf is None else buf
+
+    return net_to_jax(net, buffer, prefix=OPT_PREFIX)
 
 
 def load_momentum(net, optimizer, arrays):
     """Set the optimizer's momentum buffers from optax trace arrays."""
-    for name, layer in net.named_children():
-        for index, p in enumerate((layer.weight, layer.bias)):
-            arr = np.asarray(arrays[jax_key(name, index, OPT_PREFIX)])
-            if index == 0 and name != "conv_ref":
-                arr = arr.T
-            optimizer.state[p]["momentum_buffer"] = torch.as_tensor(
-                np.ascontiguousarray(arr, dtype=np.float32), device=p.device
-            )
+    for p, tensor in tensors_from_jax(net, arrays, prefix=OPT_PREFIX):
+        optimizer.state[p]["momentum_buffer"] = tensor
+
+
+def net_from_jax(arrays, device="cuda"):
+    """The net that the npz ``arrays`` hold: an LSTMNet (``w_ih``) or a
+    ControlNet with a conv or a dense reference branch."""
+    if jax_key("w_ih") in arrays:
+        return lstm_net_from_jax(arrays, device)
+    return control_net_from_jax(arrays, device)
 
 
 def save_train_state(save_dir, name, net, optimizer, config=None):
     """Save the controller, its momentum and the config."""
-    save_checkpoint(save_dir, name, control_net_to_jax(net), config)
+    save_checkpoint(save_dir, name, net_to_jax(net), config)
     save_checkpoint(save_dir, f"{name}_opt", momentum_to_jax(net, optimizer))
 
 
 def restore_train_state(save_dir, name, device="cuda"):
-    """-> (ControlNet, SGD optimizer with the saved momentum, config)."""
+    """-> (net, SGD optimizer with the saved momentum, config); the net is
+    the kind that the npz holds."""
     cfg = load_config(save_dir)
-    net = control_net_from_jax(load_checkpoint(save_dir, name), device)
+    net = net_from_jax(load_checkpoint(save_dir, name), device)
     optimizer = sgd_momentum(net.parameters(),
                              cfg["learning_rate_controller"])
     if checkpoint_exists(save_dir, f"{name}_opt"):

@@ -14,15 +14,24 @@ Phases, in order; any failure exits non-zero:
      tensors;
   4. backward kernel vs the hand-derived plain backward and vs torch
      autograd of the twin, at the same shapes;
-  5. the shipped ``assets/quad_trained_9k`` controller, carried across from
-     the JAX npz, flown on the card and on the CPU over the same 10 test
-     references of the numpy-generated bank;
-  6. the main path: ``TrainQuad`` from ``configs/quad_config.json`` for 2
-     epochs on the card, with both kernels' launch counts, checkpoint files
-     and a reload check;
-  7. timings: the concurrent train step at B = 4096 and each kernel at
-     B = 8 (the shipped config's batch) and B = 4096, k = 10, beside its
-     bound, its plain twin and the device time of an empty kernel;
+  5. shipped controllers, carried across from the JAX npz, flown on the
+     card and on the CPU: ``assets/quad_trained_9k``,
+     ``assets/quad_ar_trained`` and ``assets/quad_lstm_trained`` (a
+     20-row window, the LSTM from a zero carry) over the same 10 test
+     references of the numpy-generated bank, and ``assets/wing_trained``
+     to 10 fixed waypoints, 1000 steps at test time;
+  6. the training paths, each with every launch count set to 0 just
+     before it and read just after: ``TrainQuad`` from
+     ``configs/quad_config.json`` for 1 epoch in the concurrent mode (the
+     main path: one launch of each kernel per step) and 1 epoch each in
+     the autoregressive and LSTM modes (horizon launches of each kernel
+     per step, at k = 1), and ``TrainWing`` from
+     ``configs/wing_config.json`` for 1 epoch (no rollout kernel); each
+     with a finite loss and a checkpoint that reloads bit-equal;
+  7. timings: the concurrent, autoregressive, LSTM and wing train steps
+     at B = 8 (the shipped configs' batch) and B = 4096, and each kernel
+     at B = 8 and 4096 with k = 10 and k = 1, beside its bound, its plain
+     twin (k = 10) and the device time of an empty kernel;
   8. only with ``--baseline OLD.cu``: another source with the same C
      interface, such as an earlier revision of ``csrc/quad_rollout.cu``,
      built and checked against the plain versions, then timed with the
@@ -63,8 +72,13 @@ TIMING_RUNS = 50
 RTOL, ATOL = 1e-4, 1e-5
 BWD_ATOL_REL = 1e-5
 # at most this many of the 10 eval episodes may flip their success flag
-# between card and CPU (float rounding compounds over 251 closed-loop steps)
+# between card and CPU (float rounding compounds over the closed loop)
 MAX_FLIPS = 2
+# (timed, profiled) runs of each train step in phase 7: the recurrent and
+# wing steps launch thousands of kernels each, and the profiler's trace
+# of them takes long to process
+STEP_RUNS = {"concurrent": (TIMING_RUNS, TIMING_RUNS),
+             "autoregressive": (10, 3), "LSTM": (10, 3), "wing": (10, 2)}
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -337,11 +351,34 @@ def phase_kernels(device):
     return worst
 
 
+def flips_and_gap(tag, success, values, valid):
+    """Log and check the card-vs-CPU agreement of one shipped controller:
+    ``success`` per episode, ``values`` per step (states or divergences)
+    and ``valid`` masks, each a {"card": ..., "cpu": ...} of numpy
+    arrays."""
+    flips = [int(i) for i in np.nonzero(success["card"] != success["cpu"])[0]]
+    both = valid["card"] & valid["cpu"]
+    gap = np.abs(values["card"] - values["cpu"])[both].max()
+    log(f"[5] {tag}: episodes whose success flag flips card vs CPU: "
+        f"{flips}; max |state card - state cpu| over shared valid steps "
+        f"{gap:.3e}")
+    if len(flips) > MAX_FLIPS:
+        raise AssertionError(f"{tag}: {len(flips)} episodes flipped "
+                             f"(> {MAX_FLIPS})")
+
+
+def check_finite(tag, metrics, keys):
+    if not all(math.isfinite(metrics[k]) for k in keys):
+        raise AssertionError(f"{tag}: non-finite eval metrics {metrics}")
+
+
 def phase_carried_weights(device):
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
     from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import run_eval
-    from apg_trajectory_tracking_tpu_torch.models.mlp import (
-        control_net_from_jax,
+    from apg_trajectory_tracking_tpu_torch.models.rnn import (
+        LSTMNet,
+        init_lstm_state,
+        lstm_net_apply,
     )
     from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
         ensure_trajectory_bank,
@@ -351,133 +388,239 @@ def phase_carried_weights(device):
     from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
         load_checkpoint,
         load_config,
+        net_from_jax,
     )
 
-    asset = os.path.join(ROOT, "assets", "quad_trained_9k")
-    cfg = load_config(asset)
-    weights = load_checkpoint(asset, "model_quad")
     t0 = time.perf_counter()
     data_dir = ensure_trajectory_bank(os.path.join(ROOT, "data", "traj_data"))
     bank = load_trajectory_bank(data_dir, test=True)
     log(f"[5] test bank {bank.shape} ready in "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(42)
-    idx = rng.choice(len(bank), size=10, replace=False)
-    refs = np.stack([prepare_trajectory(bank[i], DT, cfg["speed_factor"])
-                     for i in idx])
-    refs[:, :, 2] += 3.0
-    ref_len = refs.shape[1] - HORIZON
+    idx = np.random.RandomState(42).choice(len(bank), size=10, replace=False)
 
-    results = {}
-    for dev in (device, torch.device("cpu")):
-        net = control_net_from_jax(weights, dev)
-        metrics, roll = run_eval(
-            net, quad_params(), refs, ref_len, thresh_div=1.0,
-            thresh_stable=1.0, horizon=HORIZON, dt=DT, test_time=True,
+    for asset in ("quad_trained_9k", "quad_ar_trained", "quad_lstm_trained"):
+        asset_dir = os.path.join(ROOT, "assets", asset)
+        cfg = load_config(asset_dir)
+        weights = load_checkpoint(asset_dir, "model_quad")
+        refs = np.stack([prepare_trajectory(bank[i], DT, cfg["speed_factor"])
+                         for i in idx])
+        refs[:, :, 2] += 3.0
+        ref_len = refs.shape[1] - HORIZON
+        success, states, valid = {}, {}, {}
+        for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            net = net_from_jax(weights, dev)
+            recurrent = {"window_len": cfg.get("ref_length", HORIZON)}
+            if isinstance(net, LSTMNet):
+                recurrent.update(net_apply=lstm_net_apply,
+                                 net_carry=init_lstm_state(10, net.hidden))
+            metrics, roll = run_eval(
+                net, quad_params(), refs, ref_len, thresh_div=1.0,
+                thresh_stable=1.0, horizon=HORIZON, dt=DT, test_time=True,
+                **recurrent,
+            )
+            divs = roll["divergences"].cpu().numpy()
+            valid[side] = roll["valid"].cpu().numpy()
+            success[side] = ((divs < 1.0) & valid[side]).sum(
+                axis=1) == min(251, ref_len + 1)
+            states[side] = roll["states"].cpu().numpy()
+            log(f"[5] {asset} on the {side}: " + json.dumps(
+                {k: metrics[k] for k in ("mean_divergence", "ratio_stable",
+                                         "mean_success", "n")}))
+            check_finite(asset, metrics, ("mean_divergence", "mean_success",
+                                          "ratio_stable"))
+        flips_and_gap(asset, success, states, valid)
+
+    phase_carried_wing(device)
+
+
+def phase_carried_wing(device):
+    """``assets/wing_trained`` flown to 10 waypoints from
+    ``RandomState(42)`` on the card and on the CPU, with the thresholds of
+    ``scripts/evaluate_wing.py`` (the checkpoint's thresh_div, thresh_stable
+    3), at test time for 1000 steps."""
+    from apg_trajectory_tracking_tpu_torch.data.dataset import (
+        WING_MEAN,
+        WING_STD,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.wing_eval import (
+        fly_to_point,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        load_config,
+        net_from_jax,
+    )
+
+    asset_dir = os.path.join(ROOT, "assets", "wing_trained")
+    cfg = load_config(asset_dir)
+    weights = load_checkpoint(asset_dir, "model_wing")
+    yz = (np.random.RandomState(42).rand(10, 2) - 0.5) * 2 * 5.0
+    targets = np.concatenate([np.full((10, 1), 50.0), yz],
+                             axis=1).astype(np.float32)
+    success, states, valid = {}, {}, {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        roll = fly_to_point(
+            net_from_jax(weights, dev), wing_params(device=dev),
+            torch.tensor(targets, device=dev),
+            torch.tensor(WING_MEAN, device=dev),
+            torch.tensor(WING_STD, device=dev),
+            thresh_div=cfg["thresh_div"], thresh_stable=3.0,
+            horizon=cfg["horizon"], max_steps=1000, dt=cfg["delta_t"],
+            test_time=True,
         )
-        divs = roll["divergences"].cpu().numpy()
-        valid = roll["valid"].cpu().numpy()
-        full = ((divs < 1.0) & valid).sum(axis=1) == min(251, ref_len + 1)
-        results[dev.type] = (metrics, full, divs, valid)
-        log(f"[5] {dev.type}: " + json.dumps(
-            {k: metrics[k] for k in ("mean_divergence", "ratio_stable",
-                                     "mean_success", "n")}))
-    m_gpu, full_gpu, d_gpu, v_gpu = results["cuda"]
-    m_cpu, full_cpu, d_cpu, v_cpu = results["cpu"]
-    for m in (m_gpu, m_cpu):
-        if not all(math.isfinite(m[k]) for k in
-                   ("mean_divergence", "mean_success", "ratio_stable")):
-            raise AssertionError(f"non-finite eval metrics {m}")
-    flips = [int(i) for i in np.nonzero(full_gpu != full_cpu)[0]]
-    both = v_gpu & v_cpu
-    log(f"[5] episodes whose success flag flips card vs CPU: {flips}; "
-        f"max |div card - div cpu| over shared valid steps "
-        f"{np.abs(d_gpu - d_cpu)[both].max():.3e}")
-    if len(flips) > MAX_FLIPS:
-        raise AssertionError(f"{len(flips)} episodes flipped (> {MAX_FLIPS})")
+        per_ep = (roll["div_target_sum"].cpu().numpy()
+                  / roll["div_target_cnt"].cpu().numpy())
+        success[side] = roll["passed"].cpu().numpy()
+        states[side] = roll["states"].cpu().numpy()
+        valid[side] = roll["valid"].cpu().numpy()
+        metrics = {"mean_target_error": float(per_ep.mean()),
+                   "passed": int(success[side].sum()),
+                   "mean_steps_alive": float(valid[side].sum(1).mean())}
+        log(f"[5] wing_trained on the {side}: " + json.dumps(metrics))
+        check_finite("wing_trained", metrics, list(metrics))
+    flips_and_gap("wing_trained", success, states, valid)
 
 
-def phase_training(device):
-    from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_to_jax
+def reset_launches():
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
-    from apg_trajectory_tracking_tpu_torch.training.common import load_config
-    from apg_trajectory_tracking_tpu_torch.training.train_quad import TrainQuad
+
+    R.FORWARD_LAUNCHES = 0
+    R.BACKWARD_LAUNCHES = 0
+
+
+def read_launches():
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    torch.cuda.synchronize()
+    return {"quad_rollout_fwd": R.FORWARD_LAUNCHES,
+            "quad_rollout_bwd": R.BACKWARD_LAUNCHES}
+
+
+def check_checkpoint(tag, trainer, name, device):
+    """The run's checkpoint files exist, and ``name`` reloads into the net
+    and momentum of ``trainer``, bit for bit."""
+    from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
     from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
         momentum_to_jax,
         restore_train_state,
     )
 
-    save_name = "chip_smoke"
-    shutil.rmtree(os.path.join("trained_models", "quad", save_name),
-                  ignore_errors=True)
-    R.FORWARD_LAUNCHES = 0
-    R.BACKWARD_LAUNCHES = 0
-    t0 = time.perf_counter()
-    trainer = TrainQuad(
-        load_config("quad"), save_name=save_name,
-        data_dir=os.path.join(ROOT, "data", "traj_data"), device=device,
-    )
-    trainer.fit(2)
-    torch.cuda.synchronize()
-    launches = {"quad_rollout_fwd": R.FORWARD_LAUNCHES,
-                "quad_rollout_bwd": R.BACKWARD_LAUNCHES}
-    log(f"[6] 2 epochs in {time.perf_counter() - t0:.1f} s; train steps "
-        f"{trainer.steps_taken}; launches {launches}; epoch env_steps_per_s "
-        f"{trainer.logger.results['env_steps_per_s']}")
-    loss = trainer.logger.results["loss"][-1]
-    if not math.isfinite(loss):
-        raise AssertionError(f"loss {loss} is not finite")
-    for name, n in launches.items():
-        if n == 0 or n != trainer.steps_taken:
-            raise AssertionError(
-                f"{name} launched {n} times in {trainer.steps_taken} steps"
-            )
-    for f in ("model_quad_final.npz", "model_quad_final_opt.npz",
-              "config.json"):
+    for f in (f"{name}.npz", f"{name}_opt.npz", "config.json"):
         if not os.path.isfile(os.path.join(trainer.save_path, f)):
-            raise AssertionError(f"{f} was not written")
-    net, opt, _ = restore_train_state(trainer.save_path, "model_quad_final",
-                                      device)
-    for saved, live in ((control_net_to_jax(net),
-                         control_net_to_jax(trainer.net)),
+            raise AssertionError(f"{tag}: {f} was not written")
+    net, opt, _ = restore_train_state(trainer.save_path, name, device)
+    if type(net) is not type(trainer.net):
+        raise AssertionError(f"{tag}: reloaded a {type(net).__name__}")
+    for saved, live in ((net_to_jax(net), net_to_jax(trainer.net)),
                         (momentum_to_jax(net, opt),
                          momentum_to_jax(trainer.net, trainer.optimizer))):
+        if sorted(saved) != sorted(live):
+            raise AssertionError(f"{tag}: reloaded keys differ")
         for key in live:
             if not np.array_equal(saved[key], live[key]):
-                raise AssertionError(f"reloaded {key} differs")
-    log(f"[6] final loss {loss:.3f}; checkpoint reloads bit-equal")
-    return launches
+                raise AssertionError(f"{tag}: reloaded {key} differs")
 
 
-def phase_timing(device, empty_lib):
+def phase_training(device):
+    """Drive each training path with the launch counts set to 0 just
+    before it and read just after -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+    from apg_trajectory_tracking_tpu_torch.training.train_quad import TrainQuad
+    from apg_trajectory_tracking_tpu_torch.training.train_wing import (
+        TrainWing,
+    )
+
+    by_path = {}
+    for path, epochs in (("concurrent", 1), ("autoregressive", 1),
+                         ("LSTM", 1), ("wing", 1)):
+        save_name = f"chip_smoke_{path}"
+        system = "wing" if path == "wing" else "quad"
+        shutil.rmtree(os.path.join("trained_models", system, save_name),
+                      ignore_errors=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        if path == "wing":
+            trainer = TrainWing(load_config("wing"), save_name=save_name,
+                                device=device)
+        else:
+            trainer = TrainQuad(
+                load_config("quad"), train_mode=path, save_name=save_name,
+                data_dir=os.path.join(ROOT, "data", "traj_data"),
+                device=device,
+            )
+        trainer.fit(epochs, verbose=False)
+        launches = read_launches()
+        by_path[path] = launches
+        per_step = {"concurrent": 1, "wing": 0}.get(path, trainer.horizon)
+        log(f"[6] {path}: {epochs} epoch(s) in "
+            f"{time.perf_counter() - t0:.1f} s; train steps "
+            f"{trainer.steps_taken}; launches {launches}; epoch times "
+            f"{trainer.logger.results['epoch_time_s']} s")
+        loss = trainer.logger.results["loss"][-1]
+        if not math.isfinite(loss):
+            raise AssertionError(f"{path}: loss {loss} is not finite")
+        for name, n in launches.items():
+            if n != per_step * trainer.steps_taken or (per_step and n == 0):
+                raise AssertionError(
+                    f"{path}: {name} launched {n} times in "
+                    f"{trainer.steps_taken} steps, expected {per_step} per "
+                    f"step"
+                )
+        name = "model_wing_final" if path == "wing" else "model_quad_final"
+        check_checkpoint(path, trainer, name, device)
+        log(f"[6] {path}: final loss {loss:.3f}; checkpoint reloads "
+            f"bit-equal")
+    return by_path
+
+
+def train_step_cases(device, batch):
+    """{path: one train step at ``batch`` on fresh random inputs}, each path
+    with its own net and optimizer, and the concurrent step's plain-twin
+    version."""
     from apg_trajectory_tracking_tpu_torch.data.dataset import (
+        WING_MEAN,
+        WING_STD,
         quad_prepare_data,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
     )
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
     from apg_trajectory_tracking_tpu_torch.losses import quad_mpc_loss
     from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+    from apg_trajectory_tracking_tpu_torch.models.rnn import LSTMNet
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
     from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
     from apg_trajectory_tracking_tpu_torch.training.train_quad import (
         build_concurrent_step,
+        build_recurrent_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.training.train_wing import (
+        build_wing_step,
     )
 
-    # loaded and launched once before any profiler session, as the
-    # rollout library is
-    empty_launch = empty_launcher(empty_lib)
     params = quad_params(device=device)
     rng = np.random.RandomState(0)
-    states = torch.tensor(rng.randn(TIMING_B, 12).astype(np.float32) * 0.3,
-                          device=device)
-    refs = torch.tensor(
-        rng.randn(TIMING_B, HORIZON, 9).astype(np.float32) * 0.3,
-        device=device,
-    )
-    net = ControlNet(15, HORIZON, 9, 4 * HORIZON,
-                     generator=torch.Generator().manual_seed(0)).to(device)
+
+    def tensor(*shape, scale=0.3):
+        return torch.tensor(rng.randn(*shape).astype(np.float32) * scale,
+                            device=device)
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    states = tensor(batch, 12)
+    refs = tensor(batch, HORIZON, 9)
+    refs2h = tensor(batch, 2 * HORIZON, 9)
+    cases = {}
+
+    net = ControlNet(15, HORIZON, 9, 4 * HORIZON, generator=seeded()).to(device)
     opt = sgd_momentum(net.parameters(), 1e-5)
     step = build_concurrent_step(net, opt, DT, HORIZON)
-    step_ms = time_host(lambda: step(params, states, refs))
+    cases["concurrent"] = lambda: step(params, states, refs)
 
     def plain_step():
         # the same step with the unroll on the plain twin under autograd
@@ -488,56 +631,99 @@ def phase_timing(device, empty_lib):
         quad_mpc_loss(inter, rel, acts).backward()
         opt.step()
 
-    plain_step_ms = time_host(plain_step)
-    runs, wall_us = profile_kernels(lambda: step(params, states, refs))
-    busy = sum(us for _, us in runs) / wall_us
-    rollout_us = sum(us for name, us in runs if "quad_rollout" in name)
-    metric = {
-        "metric": "quad_apg_train_env_steps_per_s_per_chip",
-        "value": TIMING_B * HORIZON / (step_ms / 1e3),
-        "unit": "env-steps/s",
-        "batch": TIMING_B,
-        "step_ms": step_ms,
-        "plain_twin_step_ms": plain_step_ms,
-        "kernels_per_step": len(runs) / TIMING_RUNS,
-        "device_busy_share": busy,
-        "rollout_kernels_share_of_device_time": rollout_us / sum(
-            us for _, us in runs),
-    }
-    log(f"[7] train step: {json.dumps(metric)}")
+    for path, make in (
+            ("autoregressive",
+             lambda: ControlNet(15, HORIZON, 9, 4, generator=seeded())),
+            ("LSTM", lambda: LSTMNet(15, HORIZON, 9, 4, generator=seeded()))):
+        r_net = make().to(device)
+        r_step = build_recurrent_step(
+            r_net, sgd_momentum(r_net.parameters(), 1e-5), DT, HORIZON,
+            lstm=path == "LSTM")
+        cases[path] = functools.partial(r_step, params, states, refs2h)
 
+    w_states = torch.zeros((batch, 12), device=device)
+    w_states[:, 3] = 11.5
+    w_states[:, 3:] += tensor(batch, 9, scale=0.1)
+    w_targets = torch.tensor(
+        np.concatenate([np.full((batch, 1), 50.0),
+                        (rng.rand(batch, 2) - 0.5) * 10], axis=1),
+        dtype=torch.float32, device=device)
+    w_net = ControlNet(9, 1, 3, 4 * HORIZON, conv=False,
+                       generator=seeded()).to(device)
+    w_step = build_wing_step(
+        w_net, sgd_momentum(w_net.parameters(), 1e-4), 0.05, 0.05, HORIZON,
+        torch.tensor(WING_MEAN, device=device),
+        torch.tensor(WING_STD, device=device))
+    w_params = wing_params(device=device)
+    cases["wing"] = lambda: w_step(w_params, w_states, w_targets)
+    return cases, plain_step
+
+
+def phase_timing(device, empty_lib):
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    # loaded and launched once before any profiler session, as the
+    # rollout library is
+    empty_launch = empty_launcher(empty_lib)
+    for n in (TRAIN_B, TIMING_B):
+        cases, plain_step = train_step_cases(device, n)
+        for path, step in cases.items():
+            timed, profiled = STEP_RUNS[path]
+            step_ms = time_host(step, runs=timed, warmup=2)
+            runs, wall_us = profile_kernels(step, runs=profiled, warmup=2)
+            device_us = sum(us for _, us in runs)
+            row = {
+                "path": path,
+                "batch": n,
+                "step_ms": step_ms,
+                "env_steps_per_s": n * HORIZON / (step_ms / 1e3),
+                "kernels_per_step": len(runs) / profiled,
+                "device_busy_share": device_us / wall_us,
+                "rollout_kernels_share_of_device_time": sum(
+                    us for name, us in runs if "quad_rollout" in name
+                ) / device_us,
+            }
+            if path == "concurrent" and n == TIMING_B:
+                row = {"metric": "quad_apg_train_env_steps_per_s_per_chip",
+                       "value": row["env_steps_per_s"],
+                       "unit": "env-steps/s", **row,
+                       "plain_twin_step_ms": time_host(plain_step)}
+            log(f"[7] train step: {json.dumps(row)}")
+
+    params = quad_params(device=device)
     scalars = params.kernel_scalars
     timings = {"quad_rollout_fwd": {}, "quad_rollout_bwd": {}}
-    for n in (TRAIN_B, TIMING_B):
-        s, a, g = rollout_inputs(n, 1, device)
-        out = R.quad_rollout_fwd(s, a, scalars, DT)
-        # each input read once, each output written once, float32
-        fwd_bytes = 4 * n * ((12 + 4 * HORIZON) + 12 * HORIZON)
-        bwd_bytes = 4 * n * ((12 + 4 * HORIZON + 24 * HORIZON)
-                             + (4 * HORIZON + 12))
-        cases = (
-            ("quad_rollout_fwd",
-             lambda: R.quad_rollout_fwd(s, a, scalars, DT),
-             lambda: R.quad_rollout_reference(params, s, a, DT),
-             bound_ms(fwd_bytes, FWD_OPS_PER_ROW_STEP * n * HORIZON)),
-            ("quad_rollout_bwd",
-             lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
-             lambda: R.quad_rollout_backward_reference(params, s, a, out, g,
-                                                       DT),
-             bound_ms(bwd_bytes, BWD_OPS_PER_ROW_STEP * n * HORIZON)),
-        )
-        for name, kernel, plain, (bnd, by) in cases:
-            row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
-                   "call_ms": time_cuda(kernel), "bound_ms": bnd,
-                   "bound_by": by}
-            if n == TIMING_B:
-                row["plain_ms"] = time_cuda(plain)
-            timings[name][n] = row
-            log(f"[7] {name} B={n} k={HORIZON}: kernel device time "
-                f"{row['ms']:.5f} ms, per call with launch "
-                f"{row['call_ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
-                + (f", plain twin {row['plain_ms']:.5f} ms"
-                   if n == TIMING_B else ""))
+    for k in (HORIZON, 1):
+        for n in (TRAIN_B, TIMING_B):
+            s, a, g = rollout_inputs(n, 1, device, k)
+            out = R.quad_rollout_fwd(s, a, scalars, DT)
+            # each input read once, each output written once, float32
+            fwd_bytes = 4 * n * ((12 + 4 * k) + 12 * k)
+            bwd_bytes = 4 * n * ((12 + 4 * k + 24 * k) + (4 * k + 12))
+            cases = (
+                ("quad_rollout_fwd",
+                 lambda: R.quad_rollout_fwd(s, a, scalars, DT),
+                 lambda: R.quad_rollout_reference(params, s, a, DT),
+                 bound_ms(fwd_bytes, FWD_OPS_PER_ROW_STEP * n * k)),
+                ("quad_rollout_bwd",
+                 lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
+                 lambda: R.quad_rollout_backward_reference(params, s, a, out,
+                                                           g, DT),
+                 bound_ms(bwd_bytes, BWD_OPS_PER_ROW_STEP * n * k)),
+            )
+            for name, kernel, plain, (bnd, by) in cases:
+                row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                       "call_ms": time_cuda(kernel), "bound_ms": bnd,
+                       "bound_by": by}
+                if n == TIMING_B and k == HORIZON:
+                    row["plain_ms"] = time_cuda(plain)
+                timings[name][(n, k)] = row
+                log(f"[7] {name} B={n} k={k}: kernel device time "
+                    f"{row['ms']:.5f} ms, per call with launch "
+                    f"{row['call_ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
+                    + (f", plain twin {row['plain_ms']:.5f} ms"
+                       if "plain_ms" in row else ""))
     floors = {n: kernel_device_ms(functools.partial(empty_launch, n),
                                   "empty_kernel")
               for n in (TRAIN_B, TIMING_B)}
@@ -650,31 +836,47 @@ def main(argv=None):
         return 1
     baseline = args.baseline and os.path.abspath(args.baseline)
     os.chdir(ROOT)
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phase {phase} done at {time.perf_counter() - t0:.1f} s")
+
     device, _ = phase_device()
     libs = phase_build(baseline)
+    done(2)
     worst = phase_kernels(device)
+    done("3-4")
     phase_carried_weights(device)
-    launches = phase_training(device)
+    done(5)
+    by_path = phase_training(device)
+    done(6)
     timings = phase_timing(device, libs["empty_kernel"])
+    done(7)
     if baseline:
         phase_baseline(device, baseline)
+        done(8)
     kernels = []
-    for name, by_batch in timings.items():
-        big, small = by_batch[TIMING_B], by_batch[TRAIN_B]
+    for name, rows in timings.items():
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": PALLAS_CALL,
-            "launches": launches[name],
+            "launches": by_path["concurrent"][name],
             "max_abs_err": worst[name],
-            "ms": big["ms"],
-            "plain_ms": big["plain_ms"],
-            "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"],
+            "ms": rows[(TIMING_B, HORIZON)]["ms"],
+            "plain_ms": rows[(TIMING_B, HORIZON)]["plain_ms"],
+            "bound_ms": rows[(TIMING_B, HORIZON)]["bound_ms"],
+            "bound_by": rows[(TIMING_B, HORIZON)]["bound_by"],
             "library_ms": None,
-            "ms_b8": small["ms"],
-            "bound_ms_b8": small["bound_ms"],
+            "ms_b8": rows[(TRAIN_B, HORIZON)]["ms"],
+            "bound_ms_b8": rows[(TRAIN_B, HORIZON)]["bound_ms"],
+            "ms_k1": rows[(TIMING_B, 1)]["ms"],
+            "bound_ms_k1": rows[(TIMING_B, 1)]["bound_ms"],
+            "ms_k1_b8": rows[(TRAIN_B, 1)]["ms"],
+            "bound_ms_k1_b8": rows[(TRAIN_B, 1)]["bound_ms"],
+            "launches_by_path": {path: launches[name]
+                                 for path, launches in by_path.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "apg_trajectory_tracking_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "apg_trajectory_tracking_tpu")
+# modules of the recurrent and fixed-wing slice: the probe must load each
+SLICE_MODULES = (
+    "dynamics.fixed_wing", "envs.wing_env", "evaluation.wing_eval",
+    "models.rnn", "training.train_wing",
+)
 
 
 def _forbidden(name):
@@ -37,6 +42,8 @@ bad = sorted(m for m in sys.modules
              if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r}))
 print("LOADED", len([m for m in sys.modules if m.startswith("{PORT}")]))
 print("FORBIDDEN", bad)
+print("MISSING", sorted(m for m in {SLICE_MODULES!r}
+                        if "{PORT}." + m not in sys.modules))
 """
 
 
@@ -48,12 +55,16 @@ def test_importing_the_port_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 20
+    assert int(lines["LOADED"]) >= 34
     assert lines["FORBIDDEN"] == "[]"
+    assert lines["MISSING"] == "[]"
 
 
 def test_no_source_of_the_port_imports_jax():
-    for path in _port_sources():
+    sources = list(_port_sources())
+    for module in SLICE_MODULES:
+        assert os.path.join(ROOT, PORT, *module.split(".")) + ".py" in sources
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):

@@ -49,10 +49,10 @@ from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
     metrics_from_rollout,
     run_eval,
 )
+from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
 from apg_trajectory_tracking_tpu_torch.models.mlp import (
     control_net_from_jax,
     control_net_to_jax,
-    module_to_jax,
 )
 from apg_trajectory_tracking_tpu_torch.training import train_quad
 from apg_trajectory_tracking_tpu_torch.training.common import (
@@ -87,10 +87,7 @@ def _batch(B, seed=0):
 
 
 def _grads_to_jax(net):
-    return module_to_jax({
-        name: (layer.weight.grad, layer.bias.grad)
-        for name, layer in net.named_children()
-    })
+    return net_to_jax(net, lambda p: p.grad)
 
 
 def _assert_leaves_close(got, want, rtol, atol_rel):
@@ -255,10 +252,9 @@ def test_cli_trains_on_cpu(tiny_bank, tmp_path, monkeypatch):
 
 def test_train_quad_refuses_what_is_not_ported(tiny_bank, monkeypatch):
     cfg = _tiny_config()
-    for mode in ("LSTM", "autoregressive"):
-        with pytest.raises(NotImplementedError, match="recurrent modes"):
-            train_quad.TrainQuad({**cfg, "train_mode": mode},
-                                 data_dir=tiny_bank, device="cpu")
+    with pytest.raises(ValueError, match="train_mode"):
+        train_quad.TrainQuad({**cfg, "train_mode": "lstm"},
+                             data_dir=tiny_bank, device="cpu")
     with pytest.raises(NotImplementedError, match="extras"):
         train_quad.TrainQuad({**cfg, "checkpoint_backend": "orbax"},
                              data_dir=tiny_bank, device="cpu")
