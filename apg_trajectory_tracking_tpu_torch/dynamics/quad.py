@@ -1,5 +1,7 @@
-"""Differentiable Flightmare quadrotor dynamics (counterpart of the JAX
-package's ``dynamics/quad.py``).
+"""Differentiable quadrotor dynamics (counterpart of the JAX package's
+``dynamics/quad.py``): the Flightmare model, the simplified model
+(:func:`quad_step_simple`) and the 10-state quaternion model of the
+high-level MPC (:func:`quad_step_high`).
 
 State layout (12,): ``[pos(3), attitude euler(3), vel_world(3), body_rates(3)]``.
 Action layout (4,), normalized to [0, 1]:
@@ -188,6 +190,95 @@ def quad_step_fast(params: QuadParams, state, action, dt):
     )
 
 
+def quad_step_simple(params: QuadParams, state, action, dt):
+    """One step of the simplified quad model. Unlike :func:`quad_step`, the
+    gyroscopic cross product stays in the angular acceleration, the thrust
+    acceleration is ``thrust / mass``, and the attitude integrates the
+    Euler rate of the NEW angular velocity."""
+    position = state[..., 0:3]
+    attitude = state[..., 3:6]
+    velocity = state[..., 6:9]
+    av = state[..., 9:12]
+
+    total_thrust = action[..., 0] * 15.0 - 7.5 + 9.81
+    body_rates = action[..., 1:4] - 0.5
+
+    roll, pitch, yaw = attitude[..., 0], attitude[..., 1], attitude[..., 2]
+    Cy, Sy = torch.cos(yaw), torch.sin(yaw)
+    Cp, Sp = torch.cos(pitch), torch.sin(pitch)
+    Cr, Sr = torch.cos(roll), torch.sin(roll)
+    inv_m = 1.0 / params.mass
+    acc_x = (Cy * Sp * Cr + Sr * Sy) * total_thrust * inv_m
+    acc_y = (Cr * Sy * Sp - Cy * Sr) * total_thrust * inv_m
+    acc_z = (Cr * Cp) * total_thrust * inv_m
+    acceleration = torch.stack([acc_x, acc_y, acc_z], dim=-1) + params.gravity
+
+    inertia_av = params.inertia * av
+    cross = torch.linalg.cross(av, inertia_av.expand_as(av), dim=-1)
+    ang_momentum = params.inertia * (
+        params.kinv_ang_vel_tau * (body_rates - av)
+    ) + cross
+    angular_acc = ang_momentum / params.inertia
+
+    new_position = position + 0.5 * dt * dt * acceleration + 0.5 * dt * velocity
+    new_velocity = velocity + dt * acceleration
+    new_av = av + dt * angular_acc
+    new_attitude = attitude + dt * euler_rate(attitude, new_av)
+
+    return torch.cat(
+        [new_position, new_attitude, new_velocity, new_av], dim=-1
+    )
+
+
 def quad_is_stable(state, thresh=0.4):
     """Stability mask: |roll|, |pitch| < thresh."""
     return torch.all(torch.abs(state[..., 3:5]) < thresh, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# quaternion point-mass model ("high_mpc")
+# ---------------------------------------------------------------------------
+
+_GZ = 9.81
+
+
+def _quad_high_deriv(state, action):
+    """Derivative of the 10-state quaternion model: state = [pos(3), quat
+    wxyz(4), vel(3)], action = [collective thrust (m/s^2), body rates
+    (rad/s)]."""
+    qw, qx, qy, qz = (
+        state[..., 3], state[..., 4], state[..., 5], state[..., 6]
+    )
+    thrust, wx, wy, wz = (
+        action[..., 0], action[..., 1], action[..., 2], action[..., 3]
+    )
+    return torch.stack(
+        [
+            state[..., 7],
+            state[..., 8],
+            state[..., 9],
+            0.5 * (-wx * qx - wy * qy - wz * qz),
+            0.5 * (wx * qw + wz * qy - wy * qz),
+            0.5 * (wy * qw - wz * qx + wx * qz),
+            0.5 * (wz * qw + wy * qx - wx * qy),
+            2 * (qw * qy + qx * qz) * thrust,
+            2 * (qy * qz - qw * qx) * thrust,
+            (qw * qw - qx * qx - qy * qy + qz * qz) * thrust - _GZ,
+        ],
+        dim=-1,
+    )
+
+
+def quad_step_high(params, state, action, dt, refinement=4):
+    """RK4 step of the quaternion model over ``refinement`` substeps.
+    ``params`` is unused (the model has no parameter but gravity); it keeps
+    the shared ``step(params, state, action, dt)`` signature."""
+    del params
+    h = dt / refinement
+    for _ in range(refinement):
+        k1 = h * _quad_high_deriv(state, action)
+        k2 = h * _quad_high_deriv(state + 0.5 * k1, action)
+        k3 = h * _quad_high_deriv(state + 0.5 * k2, action)
+        k4 = h * _quad_high_deriv(state + k3, action)
+        state = state + (k1 + 2 * k2 + 2 * k3 + k4) / 6.0
+    return state

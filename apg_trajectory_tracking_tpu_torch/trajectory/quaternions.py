@@ -46,3 +46,19 @@ def quaternion_to_euler(q):
     yaw = np.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
     return np.stack([roll, pitch, yaw], axis=-1)
 
+
+def euler_to_quaternion(roll, pitch, yaw):
+    """[roll, pitch, yaw] -> wxyz quaternion (q_funcs.py:21-36)."""
+    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
+    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
+    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
+    return np.stack(
+        [
+            cr * cp * cy + sr * sp * sy,
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+        ],
+        axis=-1,
+    )
+

@@ -21,6 +21,9 @@ from apg_trajectory_tracking_tpu_torch.models.common import (
 )
 from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_from_jax
 from apg_trajectory_tracking_tpu_torch.models.rnn import lstm_net_from_jax
+from apg_trajectory_tracking_tpu_torch.models.simple import (
+    cartpole_net_from_jax,
+)
 from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
 
 OPT_PREFIX = "[0].trace"
@@ -73,11 +76,23 @@ def load_momentum(net, optimizer, arrays):
 
 
 def net_from_jax(arrays, device="cuda"):
-    """The net that the npz ``arrays`` hold: an LSTMNet (``w_ih``) or a
-    ControlNet with a conv or a dense reference branch."""
+    """The net that the npz ``arrays`` hold: an LSTMNet (``w_ih``), a
+    CartpoleNet (``fc0``; a ControlNet has an ``fc_out`` too, but no
+    ``fc0``) or a ControlNet with a conv or a dense reference branch."""
     if jax_key("w_ih") in arrays:
         return lstm_net_from_jax(arrays, device)
+    if jax_key("fc0", 0) in arrays:
+        return cartpole_net_from_jax(arrays, device)
     return control_net_from_jax(arrays, device)
+
+
+def resume_name(save_dir, base):
+    """Checkpoint to resume training from: ``<base>_final`` (the last
+    epoch's weights) when it exists, else the best-by-criterion
+    ``<base>``."""
+    if checkpoint_exists(save_dir, f"{base}_final"):
+        return f"{base}_final"
+    return base
 
 
 def save_train_state(save_dir, name, net, optimizer, config=None):

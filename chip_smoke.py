@@ -36,7 +36,29 @@ Phases, in order; any failure exits non-zero:
      interface, such as an earlier revision of ``csrc/quad_rollout.cu``,
      built and checked against the plain versions, then timed with the
      port's kernels in turns (baseline, port, port, baseline) at B = 8 and
-     4096, k = 10.
+     4096, k = 10;
+  9. the three shipped cartpole controllers (``assets/cartpole_trained``,
+     ``cartpole_balance_trained``, ``cartpole_swingup_trained``), carried
+     across from the JAX npz, through the balance protocol (10 episodes x
+     250 steps from rest) and the swing-up protocol (10 starts from one
+     seeded generator, 250 steps, burn-in 100) on the card and on the CPU;
+  10. ``TrainCartpole`` from ``configs/cartpole_config.json`` for 2 epochs
+     in swing-up mode (epoch 0 never saves a best model), with its launch
+     counts set to 0 just before and read just after (no rollout kernel),
+     a finite loss and a final checkpoint that reloads bit-equal;
+  11. the solvers: the Flightmare labelling solve of
+     ``scripts/distill_mpc.py`` (one batched solve of 8000 bank states, H =
+     10, 50 Adam iterations) with its launch counts set to 0 just before
+     and read just after (50 of each kernel), held against the same solve
+     on the plain twin, timed, and the kernels timed at B = 8000 beside
+     their bound; short closed loops of the Adam ``MPC`` on all six
+     dynamics models (50 iterations per control step, 1-3 control steps);
+     the iLQR solve of 8 states near hover on the card against the CPU; the
+     first control steps of the swing-up protocol under the iLQR and the
+     CEM controllers on the card and on the CPU, the CPU's closed loop
+     driving both, with each episode's choice of start and costs logged.
+     The eager solvers launch tens of thousands of kernels per control
+     step, so a whole 250-step swing-up protocol does not fit in this run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,7 +100,46 @@ MAX_FLIPS = 2
 # wing steps launch thousands of kernels each, and the profiler's trace
 # of them takes long to process
 STEP_RUNS = {"concurrent": (TIMING_RUNS, TIMING_RUNS),
-             "autoregressive": (10, 3), "LSTM": (10, 3), "wing": (10, 2)}
+             "autoregressive": (10, 2), "LSTM": (10, 2), "wing": (10, 2),
+             "cartpole": (10, 2)}
+CARTPOLE_ASSETS = ("cartpole_trained", "cartpole_balance_trained",
+                   "cartpole_swingup_trained")
+# the batch of one labelling solve (scripts/distill_mpc.py --n_pairs) and
+# the Adam iterations of every MPC solve (--mpc_iters, MPC's default)
+LABEL_B = 8000
+MPC_ITERS = 50
+# the labelling solve against its plain twin: the 50-iteration shooting
+# solve's bounds (tests/test_torch_controllers.py), cost rtol 1e-4 with an
+# atol of 1e-5 for the costs near 0 of states that start on their
+# reference, and u atol 1e-3
+SOLVE_RTOL, SOLVE_COST_ATOL, SOLVE_ATOL = 1e-4, 1e-5, 1e-3
+# control steps of each model in the closed loops of phase 11, each of
+# MPC_ITERS Adam iterations. The eager solvers are host-bound: one H100
+# took 24-34 s per control step of the RK4 quaternion model and 7-8 s of
+# the 3D wing, 2-3 s of the others
+CONTROL_STEPS = {"flightmare": 3, "simple_quad": 1, "high_mpc": 1,
+                 "cartpole": 1, "fixed_wing_3D": 1, "fixed_wing_2D": 1}
+# control steps of the swing-up protocol under each solver (iLQR: 8-13 s
+# per control step of 10 episodes on one H100)
+SWINGUP_STEPS = {"iLQR": 1, "CEM": 3}
+# the swing-up iLQR on the card against the CPU. Its float32 solve is
+# chaotic (tests/test_torch_ilqr_cem.py: at its default iterations a
+# float64 solve parts from it by the whole action range in 4 of 6
+# episodes), so its plans are not compared. Instead: the cost the card
+# reports for each accepted plan against that plan's cost in float64 on
+# the CPU (on the CPU, the float32 cost of these plans drifts from the
+# float64 cost by up to 8.6e-4 relative), and the total cost of the 10
+# accepted plans against the CPU's (the local minima of float32 and float64
+# solves differ by up to 12 % in one episode, 2 % in the total)
+SWINGUP_COST_RTOL = 5e-3
+SWINGUP_TOTAL_RTOL = 0.1
+# the CEM on the same noise on card and CPU: plan gap (observed 2.2e-4)
+CEM_PLAN_ATOL = 1e-3
+# the iLQR's machinery (torch.func derivatives, batched Riccati pass, line
+# search) on a well-conditioned problem, card against CPU: 8 states near
+# hover, 10 iterations. On the CPU float32 and float64 solves of these
+# states differ by up to 4.8e-4 in u and 1.8e-7 relative in cost
+ILQR_HOVER_ATOL, ILQR_HOVER_COST_RTOL = 2e-3, 1e-4
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -356,12 +417,19 @@ def flips_and_gap(tag, success, values, valid):
     ``success`` per episode, ``values`` per step (states or divergences)
     and ``valid`` masks, each a {"card": ..., "cpu": ...} of numpy
     arrays."""
-    flips = [int(i) for i in np.nonzero(success["card"] != success["cpu"])[0]]
     both = valid["card"] & valid["cpu"]
     gap = np.abs(values["card"] - values["cpu"])[both].max()
-    log(f"[5] {tag}: episodes whose success flag flips card vs CPU: "
-        f"{flips}; max |state card - state cpu| over shared valid steps "
-        f"{gap:.3e}")
+    check_flips(f"[5] {tag}", success,
+                f"; max |state card - state cpu| over shared valid steps "
+                f"{gap:.3e}")
+
+
+def check_flips(tag, success, more=""):
+    """Log the episodes whose ``success`` flag ({"card": ..., "cpu": ...})
+    differs between card and CPU; fail above ``MAX_FLIPS``."""
+    flips = [int(i) for i in np.nonzero(success["card"] != success["cpu"])[0]]
+    log(f"{tag}: episodes whose success flag flips card vs CPU: {flips}"
+        + more)
     if len(flips) > MAX_FLIPS:
         raise AssertionError(f"{tag}: {len(flips)} episodes flipped "
                              f"(> {MAX_FLIPS})")
@@ -585,6 +653,9 @@ def train_step_cases(device, batch):
         WING_STD,
         quad_prepare_data,
     )
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
     from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
         wing_params,
     )
@@ -592,8 +663,12 @@ def train_step_cases(device, batch):
     from apg_trajectory_tracking_tpu_torch.losses import quad_mpc_loss
     from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
     from apg_trajectory_tracking_tpu_torch.models.rnn import LSTMNet
+    from apg_trajectory_tracking_tpu_torch.models.simple import CartpoleNet
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
     from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
+    from apg_trajectory_tracking_tpu_torch.training.train_cartpole import (
+        build_cartpole_step,
+    )
     from apg_trajectory_tracking_tpu_torch.training.train_quad import (
         build_concurrent_step,
         build_recurrent_step,
@@ -656,6 +731,13 @@ def train_step_cases(device, batch):
         torch.tensor(WING_STD, device=device))
     w_params = wing_params(device=device)
     cases["wing"] = lambda: w_step(w_params, w_states, w_targets)
+
+    c_states = tensor(batch, 4, scale=1.0)
+    c_net = CartpoleNet(generator=seeded()).to(device)
+    c_step = build_cartpole_step(
+        c_net, sgd_momentum(c_net.parameters(), 1e-5), 0.05, HORIZON)
+    c_params = cartpole_params(device=device)
+    cases["cartpole"] = lambda: c_step(c_params, c_states)
     return cases, plain_step
 
 
@@ -751,6 +833,392 @@ def empty_launcher(path):
     launch(1)
     torch.cuda.synchronize()
     return launch
+
+
+def phase_cartpole_controllers(device):
+    """The shipped cartpole controllers through both protocols, on the card
+    and on the CPU."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        reset_swingup,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval import (
+        balance_metrics,
+        evaluate_balance,
+        evaluate_swingup,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        net_from_jax,
+    )
+
+    starts = reset_swingup(torch.Generator().manual_seed(0), 10)
+    for asset in CARTPOLE_ASSETS:
+        weights = load_checkpoint(os.path.join(ROOT, "assets", asset),
+                                  "model_cartpole")
+        held, upright = {}, {}
+        for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            net, params = net_from_jax(weights, dev), cartpole_params(
+                device=dev)
+            raw = evaluate_balance(net, params)
+            held[side] = raw["steps_per_episode"].cpu().numpy() >= 249
+            bal = balance_metrics(raw)
+            raw = evaluate_swingup(net, params, starts)
+            upright[side] = raw["success_per_episode"].cpu().numpy()
+            su = {k: float(raw[k]) for k in ("success_rate", "mean_vel")}
+            su["mean_final_angle"] = float(
+                raw["final_angle_per_episode"].mean())
+            log(f"[9] {asset} on the {side}: balance " + json.dumps(
+                {k: bal[k] for k in ("mean_vel", "mean_stable",
+                                     "ratio_full", "n")})
+                + "; swing-up " + json.dumps(su))
+            check_finite(asset, {"stable": bal["mean_stable"], **su},
+                         ("stable", "mean_vel", "success_rate"))
+        check_flips(f"[9] {asset} balance", held)
+        check_flips(f"[9] {asset} swing-up", upright)
+
+
+def phase_cartpole_training(device):
+    """``TrainCartpole`` for 2 epochs with the launch counts set to 0 just
+    before and read just after -> its launches."""
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+    from apg_trajectory_tracking_tpu_torch.training.train_cartpole import (
+        TrainCartpole,
+    )
+
+    save_name = "chip_smoke_cartpole"
+    shutil.rmtree(os.path.join("trained_models", "cartpole", save_name),
+                  ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = TrainCartpole(load_config("cartpole"), swingup=True,
+                            save_name=save_name, device=device)
+    trainer.fit(2, verbose=False)
+    launches = read_launches()
+    res = trainer.logger.results
+    log(f"[10] cartpole: 2 epochs in {time.perf_counter() - t0:.1f} s; "
+        f"train steps {trainer.steps_taken}; launches {launches}; epoch "
+        f"times {res['epoch_time_s']} s; swing-up mean_vel "
+        f"{res['mean_vel']}, success_rate {res['success_rate']}")
+    loss = res["loss"][-1]
+    if not math.isfinite(loss):
+        raise AssertionError(f"cartpole: loss {loss} is not finite")
+    if any(launches.values()):
+        raise AssertionError(f"cartpole: rollout kernels launched "
+                             f"{launches}, expected none")
+    check_checkpoint("cartpole", trainer, "model_cartpole_final", device)
+    if not os.path.isfile(os.path.join(trainer.save_path,
+                                       "model_cartpole.npz")):
+        raise AssertionError("cartpole: no best model was saved")
+    log(f"[10] cartpole: final loss {loss:.3f}; checkpoint reloads "
+        f"bit-equal")
+    return launches
+
+
+def labelling_problem(device):
+    """The (state, window) pairs of one labelling solve of
+    ``scripts/distill_mpc.py``: ``LABEL_B`` bank states at speed 0.4, each
+    window padded to the 12 state dims -> (x0, ref, z0) on ``device``."""
+    from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
+        full_state_training_data,
+    )
+    from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
+        ensure_trajectory_bank,
+        load_trajectory_bank,
+    )
+
+    bank = load_trajectory_bank(ensure_trajectory_bank(
+        os.path.join(ROOT, "data", "traj_data")))
+    states, windows = full_state_training_data(
+        np.random.RandomState(0), bank, LABEL_B, ref_length=HORIZON, dt=DT,
+        speed_factor=0.4)
+    win12 = np.concatenate(
+        [windows, np.zeros(windows.shape[:2] + (3,), np.float32)], axis=2)
+    return (torch.tensor(states, device=device),
+            torch.tensor(win12, device=device),
+            torch.zeros((LABEL_B, HORIZON, 4), device=device))
+
+
+def phase_labelling_solve(device):
+    """The batched Flightmare solve on the kernels, its launches, its plain
+    twin, its time, and the kernels' time at its batch -> (launches,
+    {name: kernel row at B = LABEL_B})."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import (
+        _SPECS,
+        _make_solver,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        quad_params,
+        quad_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    x0, ref, z0 = labelling_problem(device)
+    params = quad_params(device=device)
+    spec = _SPECS["flightmare"].to(device)
+    solve = _make_solver(quad_step, spec, HORIZON, DT, MPC_ITERS, 0.1)
+    twin = _make_solver(
+        quad_step, spec, HORIZON, DT, MPC_ITERS, 0.1,
+        unroll=lambda p, x, u: R.quad_rollout_reference(p, x, u, DT))
+
+    reset_launches()
+    u_k, _, c_k = solve(params, x0, ref, z0)
+    launches = read_launches()
+    if launches != {"quad_rollout_fwd": MPC_ITERS,
+                    "quad_rollout_bwd": MPC_ITERS}:
+        raise AssertionError(f"labelling solve launched {launches}, "
+                             f"expected {MPC_ITERS} of each kernel")
+    u_p, _, c_p = twin(params, x0, ref, z0)
+    torch.cuda.synchronize()
+    u_gap = (u_k - u_p).abs().max().item()
+    c_gap = (c_k - c_p).abs()
+    log(f"[11] labelling solve B={LABEL_B}: launches {launches}; kernels vs "
+        f"plain twin: max |u| gap {u_gap:.3e} (atol {SOLVE_ATOL}), max cost "
+        f"gap {c_gap.max().item():.3e} absolute, "
+        f"{(c_gap / c_p.abs()).max().item():.3e} relative (rtol "
+        f"{SOLVE_RTOL}, atol {SOLVE_COST_ATOL}); mean cost "
+        f"{c_k.mean().item():.4f}")
+    torch.testing.assert_close(c_k, c_p, rtol=SOLVE_RTOL,
+                               atol=SOLVE_COST_ATOL)
+    torch.testing.assert_close(u_k, u_p, rtol=0, atol=SOLVE_ATOL)
+    if not torch.isfinite(u_k).all():
+        raise AssertionError("labelling solve: non-finite actions")
+
+    def run():
+        solve(params, x0, ref, z0)
+
+    solve_ms = time_host(run, runs=5, warmup=1)
+    twin_ms = time_host(lambda: twin(params, x0, ref, z0), runs=1, warmup=0)
+    runs, wall_us = profile_kernels(run, runs=2, warmup=0)
+    device_us = sum(us for _, us in runs)
+    log("[11] labelling solve: " + json.dumps({
+        "batch": LABEL_B, "iterations": MPC_ITERS, "solve_ms": solve_ms,
+        "plain_twin_solve_ms": twin_ms, "kernels_per_solve": len(runs) / 2,
+        "device_busy_share": device_us / wall_us,
+        "rollout_kernels_share_of_device_time": sum(
+            us for name, us in runs if "quad_rollout" in name) / device_us,
+    }))
+
+    scalars = params.kernel_scalars
+    s, a, g = rollout_inputs(LABEL_B, 2, device)
+    out = R.quad_rollout_fwd(s, a, scalars, DT)
+    n, k = LABEL_B, HORIZON
+    rows = {}
+    for name, kernel, (bnd, by) in (
+            ("quad_rollout_fwd", lambda: R.quad_rollout_fwd(s, a, scalars,
+                                                            DT),
+             bound_ms(4 * n * ((12 + 4 * k) + 12 * k),
+                      FWD_OPS_PER_ROW_STEP * n * k)),
+            ("quad_rollout_bwd",
+             lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
+             bound_ms(4 * n * ((12 + 28 * k) + (4 * k + 12)),
+                      BWD_OPS_PER_ROW_STEP * n * k))):
+        rows[name] = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                      "bound_ms": bnd, "bound_by": by}
+        log(f"[11] {name} B={n} k={k}: kernel device time "
+            f"{rows[name]['ms']:.5f} ms, bound {bnd:.6f} ms ({by})")
+    return launches, rows
+
+
+def mpc_case(dynamics, device):
+    """(start state, reference argument, dt, plant step, plant params) of a
+    closed loop of ``dynamics``."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import _STEPS
+
+    step, params_fn = _STEPS[dynamics]
+    params = params_fn(device=device)
+    if dynamics in ("flightmare", "simple_quad", "high_mpc"):
+        ref = np.zeros((HORIZON, 9), np.float32)
+        ref[:, 2] = 3.0
+        ref[:, 6] = 0.3
+        if dynamics == "high_mpc":
+            state = [0, 0, 2.8, 1, 0, 0, 0, 0.3, -0.2, 0.1]
+        else:
+            state = [0, 0, 2.8, 0.05, -0.1, 0.2, 0.3, -0.2, 0.1, 0, 0, 0]
+        return state, ref, 0.1, step, params
+    if dynamics == "cartpole":
+        return [0.1, 0.0, 0.15, 0.0], None, 0.05, step, params
+    if dynamics == "fixed_wing_3D":
+        return ([0, 0, 0, 11.5] + [0] * 8, np.array([50.0, 2.0, 1.0]), 0.05,
+                step, params)
+    return [0, 0, 11.5, 0, 0, 0], np.array([50.0, 2.0]), 0.05, step, params
+
+
+def phase_mpc_loops(device):
+    """A short closed loop of the Adam MPC on each dynamics model, timed
+    per control step."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC, _STEPS
+
+    for dynamics in _STEPS:
+        state, ref, dt, step, params = mpc_case(dynamics, device)
+        mpc = MPC(horizon=HORIZON, dt=dt, dynamics=dynamics,
+                  n_iters=MPC_ITERS, device=device)
+        state = torch.tensor([state], dtype=torch.float32, device=device)
+        times = []
+        for _ in range(CONTROL_STEPS[dynamics]):
+            t0 = time.perf_counter()
+            u = mpc.predict_actions(state[0].cpu().numpy(), ref)
+            times.append((time.perf_counter() - t0) * 1e3)
+            state = step(params, state, torch.tensor(u[:1], device=device),
+                         dt)
+        if not (np.isfinite(u).all() and torch.isfinite(state).all()):
+            raise AssertionError(f"{dynamics} MPC: non-finite actions or "
+                                 f"states")
+        log(f"[11] MPC {dynamics}: {len(times)} control steps of "
+            f"{MPC_ITERS} Adam iterations; ms per control step "
+            f"{[round(t, 1) for t in times]} ({times[-1] / MPC_ITERS:.2f} "
+            f"per iteration in the last); final state "
+            f"{np.round(state[0].cpu().numpy(), 3).tolist()}")
+
+
+def phase_ilqr_hover(device):
+    """The iLQR solve of 8 states near hover on the card against the CPU."""
+    from apg_trajectory_tracking_tpu_torch.controllers.ilqr import (
+        make_ilqr_solver,
+    )
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import _SPECS
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        quad_params,
+        quad_step,
+    )
+
+    x0 = torch.from_numpy(
+        (np.random.RandomState(0).randn(8, 12) * 0.1).astype(np.float32))
+    x0[:, 2] += 0.8
+    ref = torch.zeros(8, HORIZON, 12)
+    ref[..., 2] = 1.0
+    out = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        solve = make_ilqr_solver(quad_step, _SPECS["flightmare"].to(dev),
+                                 HORIZON, DT, n_iters=10)
+        u, _, cost = solve(quad_params(device=dev), x0.to(dev), ref.to(dev),
+                           torch.zeros(8, HORIZON, 4, device=dev))
+        out[side] = (u.cpu(), cost.cpu())
+    u_gap = float((out["card"][0] - out["cpu"][0]).abs().max())
+    c_gap = float(((out["card"][1] - out["cpu"][1]) / out["cpu"][1]).abs()
+                  .max())
+    log(f"[11] iLQR hover solve, 8 states: card vs CPU max |u| gap "
+        f"{u_gap:.3e} (atol {ILQR_HOVER_ATOL}), max cost gap {c_gap:.3e} "
+        f"relative (rtol {ILQR_HOVER_COST_RTOL})")
+    if u_gap > ILQR_HOVER_ATOL or c_gap > ILQR_HOVER_COST_RTOL:
+        raise AssertionError("iLQR hover solve: card and CPU disagree")
+
+
+def swingup_plan_cost64(starts, u):
+    """The swing-up cost of each plan u (n, horizon) from ``starts``, in
+    float64 on the CPU: the iLQR controller's cost of its warm start, with
+    no iteration."""
+    from apg_trajectory_tracking_tpu_torch.controllers.ilqr import (
+        make_cartpole_swingup_ilqr,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+
+    evaluate, _ = make_cartpole_swingup_ilqr(
+        cartpole_params().to(torch.float64), horizon=u.shape[1], n_iters=0,
+        lqr_iters=0)
+    frac = (u.cpu().double() + 1.0) / 2.0
+    z = torch.log(frac / (1.0 - frac))[..., None]
+    return evaluate(None, starts.cpu().double(), z,
+                    return_info=True)[2]["cost_warm"]
+
+
+def check_swingup_ilqr(starts, actions, infos):
+    """Log each episode's choice of start and both costs on card and CPU,
+    and hold the card's accepted plans to their float64 cost and the CPU's
+    total (see ``SWINGUP_COST_RTOL``)."""
+    chosen = {}
+    for side, info in infos.items():
+        pick = info["pick_hold"].cpu()
+        cw, cl = info["cost_warm"].cpu(), info["cost_hold"].cpu()
+        chosen[side] = torch.where(pick, cl, cw).double()
+        log(f"[11] swing-up iLQR on the {side}: start picked per episode "
+            f"{['hold' if p else 'warm' for p in pick.tolist()]}; cost of "
+            f"the warm start {np.round(cw.numpy(), 2).tolist()}, of the "
+            f"hold start {np.round(cl.numpy(), 2).tolist()}")
+    c64 = swingup_plan_cost64(starts, actions["card"])
+    self_gap = float(((chosen["card"] - c64) / c64).abs().max())
+    total = {side: float(c.sum()) for side, c in chosen.items()}
+    total_gap = abs(total["card"] - total["cpu"]) / total["cpu"]
+    gaps = (actions["card"].cpu() - actions["cpu"]).abs().amax(dim=1)
+    log(f"[11] swing-up iLQR: card's cost of its accepted plans vs their "
+        f"float64 cost on the CPU, max gap {self_gap:.3e} relative (rtol "
+        f"{SWINGUP_COST_RTOL}); total cost card {total['card']:.2f}, CPU "
+        f"{total['cpu']:.2f}, gap {total_gap:.3e} (rtol "
+        f"{SWINGUP_TOTAL_RTOL}); max |plan card - plan cpu| per episode "
+        f"{[f'{g:.2e}' for g in gaps.tolist()]}")
+    if self_gap > SWINGUP_COST_RTOL or total_gap > SWINGUP_TOTAL_RTOL:
+        raise AssertionError("swing-up iLQR: the card's plans fail their "
+                             "cost checks")
+
+
+def phase_swingup_solvers(device):
+    """The first ``SWINGUP_STEPS`` control steps of the swing-up protocol
+    (10 episodes, horizon 60) under the iLQR and the CEM controllers, the
+    CPU's closed loop driving both: at every control step the card solves
+    from the CPU's states and warm start. The CEM's plans (the same noise
+    on both) must agree within ``CEM_PLAN_ATOL``; the iLQR's are held to
+    their costs (``check_swingup_ilqr``)."""
+    from apg_trajectory_tracking_tpu_torch.controllers.cem import (
+        make_cartpole_swingup_cem,
+    )
+    from apg_trajectory_tracking_tpu_torch.controllers.ilqr import (
+        make_cartpole_swingup_ilqr,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        env_step,
+        reset_swingup,
+    )
+
+    cpu = torch.device("cpu")
+    sides = (("cpu", cpu), ("card", device))
+    starts = reset_swingup(torch.Generator().manual_seed(0), 10)
+    for name, make in (("iLQR", make_cartpole_swingup_ilqr),
+                       ("CEM", make_cartpole_swingup_cem)):
+        ctl = {side: make(cartpole_params(device=dev)) for side, dev in sides}
+        carry = {side: ctl[side][1](starts.to(dev)) for side, dev in sides}
+        state, times, gaps = starts, {"cpu": [], "card": []}, []
+        for _ in range(SWINGUP_STEPS[name]):
+            actions, infos = {}, {}
+            for side, dev in sides:
+                t0 = time.perf_counter()
+                out = ctl[side][0](None, state.to(dev), carry[side],
+                                   **({"return_info": True}
+                                      if name == "iLQR" else {}))
+                actions[side] = out[0].cpu()
+                times[side].append((time.perf_counter() - t0) * 1e3)
+                carry[side] = out[1]
+                if name == "iLQR":
+                    infos[side] = out[2]
+            if not all(np.isfinite(a.numpy()).all()
+                       for a in actions.values()):
+                raise AssertionError(f"{name}: non-finite plan")
+            gaps.append(float((actions["card"] - actions["cpu"]).abs()
+                              .max()))
+            if name == "iLQR":
+                check_swingup_ilqr(state, actions, infos)
+            # the card's next solve starts where the CPU's does
+            carry["card"] = (carry["cpu"].to(device) if name == "iLQR"
+                             else (carry["cpu"][0].to(device),
+                                   carry["card"][1]))
+            state = env_step(cartpole_params(), state,
+                             actions["cpu"][:, :1], 0.05)
+        log(f"[11] swing-up {name}, 10 episodes: ms per control step card "
+            f"{[round(t, 1) for t in times['card']]}, CPU "
+            f"{[round(t, 1) for t in times['cpu']]}; max |plan card - plan "
+            f"cpu| per control step {[f'{g:.2e}' for g in gaps]}; a "
+            f"250-step protocol would take about "
+            f"{250 * float(np.median(times['card'])) / 1e3:.0f} s on the "
+            f"card")
+        if name == "CEM" and max(gaps) > CEM_PLAN_ATOL:
+            raise AssertionError(f"CEM: card and CPU plans differ by "
+                                 f"{max(gaps):.3e} (> {CEM_PLAN_ATOL})")
 
 
 def raw_launchers(lib, n, params, device):
@@ -855,6 +1323,15 @@ def main(argv=None):
     if baseline:
         phase_baseline(device, baseline)
         done(8)
+    phase_cartpole_controllers(device)
+    done(9)
+    by_path["cartpole"] = phase_cartpole_training(device)
+    done(10)
+    by_path["flightmare_solve"], label_rows = phase_labelling_solve(device)
+    phase_mpc_loops(device)
+    phase_ilqr_hover(device)
+    phase_swingup_solvers(device)
+    done(11)
     kernels = []
     for name, rows in timings.items():
         kernels.append({
@@ -875,6 +1352,8 @@ def main(argv=None):
             "bound_ms_k1": rows[(TIMING_B, 1)]["bound_ms"],
             "ms_k1_b8": rows[(TRAIN_B, 1)]["ms"],
             "bound_ms_k1_b8": rows[(TRAIN_B, 1)]["bound_ms"],
+            "ms_b8000": label_rows[name]["ms"],
+            "bound_ms_b8000": label_rows[name]["bound_ms"],
             "launches_by_path": {path: launches[name]
                                  for path, launches in by_path.items()},
         })

@@ -13,10 +13,14 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "apg_trajectory_tracking_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "apg_trajectory_tracking_tpu")
-# modules of the recurrent and fixed-wing slice: the probe must load each
+# modules of the later slices: the probe must load each
 SLICE_MODULES = (
     "dynamics.fixed_wing", "envs.wing_env", "evaluation.wing_eval",
     "models.rnn", "training.train_wing",
+    "dynamics.cartpole", "dynamics.fixed_wing_2d", "envs.cartpole_env",
+    "evaluation.cartpole_eval", "evaluation.robustness", "models.simple",
+    "training.train_cartpole", "controllers.mpc", "controllers.ilqr",
+    "controllers.cem", "dynamics.unroll",
 )
 
 
@@ -55,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 34
+    assert int(lines["LOADED"]) >= 46
     assert lines["FORBIDDEN"] == "[]"
     assert lines["MISSING"] == "[]"
 
