@@ -39,6 +39,7 @@ from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
 )
 from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
+from apg_trajectory_tracking_tpu_torch.training.common import adam_update
 from apg_trajectory_tracking_tpu_torch.trajectory.quaternions import (
     euler_to_quaternion,
 )
@@ -93,8 +94,6 @@ _STEPS = {
 }
 
 _LOGIT_CLIP = 8.0
-# optax.adam's defaults
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 def _unroll(dyn_step, dt):
@@ -142,12 +141,7 @@ def _make_solver(dyn_step, spec: MPCSpec, horizon, dt, n_iters, lr,
                 cost = torch.sum(state_mask * c_state + c_u, dim=-1)
                 (g,) = torch.autograd.grad(cost.sum(), z_var)
             z = z_var.detach()
-            # optax.adam(lr), one update, in optax's order of operations
-            mu = (1 - _B1) * g + _B1 * mu
-            nu = (1 - _B2) * g**2 + _B2 * nu
-            mu_hat = mu / (1 - np.float32(_B1) ** np.float32(count))
-            nu_hat = nu / (1 - np.float32(_B2) ** np.float32(count))
-            update = mu_hat / (torch.sqrt(nu_hat) + _EPS) * -lr
+            update, mu, nu = adam_update(g, mu, nu, count, lr)
             z = torch.clamp(z + update, -_LOGIT_CLIP, _LOGIT_CLIP)
         u = spec.u_min + span * torch.sigmoid(z)
         return u, z, cost.detach()

@@ -2,7 +2,8 @@
 (counterpart of the JAX package's ``evaluation/quad_eval.py``).
 
 All test trajectories roll out in lockstep, one action at a time through
-:func:`quad_step`, in a fixed-length masked loop:
+:func:`quad_step` (or the ``dyn_step`` given, a learnt model's step for
+instance), in a fixed-length masked loop:
 
   * divergence > thresh or instability -> at train time the state resets
     onto the reference; at test time the episode is marked done and its
@@ -49,18 +50,22 @@ def follow_trajectories(
     net_carry=None,
     window_len=None,
     net_window=None,
+    dyn_step=quad_step,
 ):
     """Roll out the controller on a batch of reference trajectories.
 
     Args:
         net: the controller on the references' device.
-        dyn_params: QuadParams on the same device.
+        dyn_params: the params of ``dyn_step`` (QuadParams for
+            :func:`quad_step`) on the same device.
         references: (n_test, T, 9) prepared references [pos, att, vel].
         ref_len: usable reference length (the same for all tests).
         net_apply: (net, carry, in_state, in_ref) -> (carry, logits).
         net_carry: the initial carry (None for a feed-forward net).
         window_len: rows of each reference window (horizon by default).
         net_window: rows of it that the net sees (horizon by default).
+        dyn_step: (dyn_params, state, action, dt) -> next state, the plant
+            (a learnt model's step, for instance).
     Returns dict with:
         divergences: (n_test, max_steps) distance to the reference point.
         valid: (n_test, max_steps) step-executed mask.
@@ -82,7 +87,7 @@ def follow_trajectories(
         net_carry, logits = net_apply(net, net_carry, in_state,
                                       in_ref[:, :net_window])
         actions = torch.sigmoid(logits).reshape(n_test, -1, 4)
-        new_state = quad_step(dyn_params, state, actions[:, 0], dt)
+        new_state = dyn_step(dyn_params, state, actions[:, 0], dt)
 
         stable = quad_is_stable(new_state, thresh_stable)
         ref_row = references[:, min(i + 1, T - 1)]
@@ -130,11 +135,13 @@ def run_eval(
     net_carry=None,
     window_len=None,
     net_window=None,
+    dyn_step=quad_step,
 ):
     """Closed-loop eval on the net's device -> (metrics dict, rollout dict).
 
-    ``references`` may be a numpy array or a tensor; it, ``dyn_params`` and
-    ``net_carry`` are moved to the net's device.
+    ``references`` may be a numpy array or a tensor; it, ``dyn_params`` (any
+    params object with ``.to``, a LearntDynamics too) and ``net_carry`` are
+    moved to the net's device.
     """
     device = next(net.parameters()).device
     references = torch.as_tensor(references, dtype=torch.float32,
@@ -146,6 +153,7 @@ def run_eval(
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
         max_steps=max_steps, dt=dt, test_time=test_time, net_apply=net_apply,
         net_carry=net_carry, window_len=window_len, net_window=net_window,
+        dyn_step=dyn_step,
     )
     metrics = metrics_from_rollout(
         roll["divergences"].cpu().numpy(), roll["valid"].cpu().numpy(),

@@ -76,14 +76,17 @@ def fly_to_point(
     max_steps=1000,
     dt=0.05,
     test_time=False,
+    dyn_step=wing_step,
 ):
     """Fly a batch of episodes from level flight toward their targets.
 
     Args:
         net: the dense ControlNet on the targets' device.
-        dyn_params: WingParams on the same device.
+        dyn_params: the params of ``dyn_step`` (WingParams for
+            :func:`wing_step`) on the same device.
         targets: (n, 3) waypoints (x ~ 50, y/z ~ +-5).
         mean, std: (12,) state normalization stats on the same device.
+        dyn_step: (dyn_params, state, action, dt) -> next state, the plant.
     Returns dict:
         div_target_sum/cnt: per-episode sum and count of target distances;
         passed: (n,) whether the episode passed its target;
@@ -107,7 +110,7 @@ def fly_to_point(
             state, targets, mean, std, dt=dt, horizon=horizon
         )
         actions = torch.sigmoid(net(normed, rel_ref)).reshape(n, -1, 4)
-        new_state = wing_step(dyn_params, state, actions[:, 0], dt)
+        new_state = dyn_step(dyn_params, state, actions[:, 0], dt)
 
         if test_time:
             next_state, done_next, dsum, dcnt, npass, active = (
@@ -176,6 +179,7 @@ def run_eval(
     max_steps=1000,
     dt=0.05,
     test_time=False,
+    dyn_step=wing_step,
 ):
     """Fly ``nr_test`` episodes to targets at x = ``x_dist`` with y and z
     drawn from U(-x_std, x_std) by ``generator``, on the net's device ->
@@ -191,7 +195,7 @@ def run_eval(
         torch.as_tensor(mean, device=device),
         torch.as_tensor(std, device=device),
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
-        max_steps=max_steps, dt=dt, test_time=test_time,
+        max_steps=max_steps, dt=dt, test_time=test_time, dyn_step=dyn_step,
     )
     per_ep = (roll["div_target_sum"].cpu().numpy()
               / roll["div_target_cnt"].cpu().numpy())

@@ -58,21 +58,23 @@ def make_reference(states, horizon):
     return states[:, None, :] * factors[None, :, None]
 
 
-def cartpole_loss(net, dyn_params, states, dt, horizon):
+def cartpole_loss(net, dyn_params, states, dt, horizon,
+                  dyn_step=cartpole_step):
     """Loss of one batch of (B, 4) states: the net emits all k actions and
-    the cart-pole unrolls them."""
+    ``dyn_step`` (the cart-pole, or a learnt model of it) unrolls them."""
     action_seq = net(states).reshape(-1, horizon, 1)
-    xs = step_rollout(cartpole_step, dyn_params, states, action_seq, dt)
+    xs = step_rollout(dyn_step, dyn_params, states, action_seq, dt)
     return cartpole_loss_mpc(xs, make_reference(states, horizon), action_seq)
 
 
-def build_cartpole_step(net, optimizer, dt, horizon):
+def build_cartpole_step(net, optimizer, dt, horizon,
+                        dyn_step=cartpole_step):
     """-> ``step(dyn_params, states) -> loss``: one SGD step of
     ``optimizer`` on ``net``."""
 
     def step(dyn_params, states):
         optimizer.zero_grad(set_to_none=True)
-        loss = cartpole_loss(net, dyn_params, states, dt, horizon)
+        loss = cartpole_loss(net, dyn_params, states, dt, horizon, dyn_step)
         loss.backward()
         optimizer.step()
         return loss.detach()

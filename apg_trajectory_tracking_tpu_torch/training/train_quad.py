@@ -17,7 +17,7 @@ Run it with::
     python -m apg_trajectory_tracking_tpu_torch.training.train_quad \
         -s NAME [-m concurrent|autoregressive|LSTM] [--epochs N] \
         [--seed S] [--no-curriculum] [--smoke] [-o KEY=VALUE ...] \
-        [--data_dir D] [--cpu]
+        [--base_model DIR] [--data_dir D] [--cpu]
 """
 
 import argparse
@@ -60,6 +60,8 @@ from apg_trajectory_tracking_tpu_torch.training.common import (
 )
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     checkpoint_exists,
+    restore_train_state,
+    resume_name,
     save_train_state,
 )
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
@@ -69,29 +71,36 @@ IN_STATE_SIZE = 15  # quad feature vector (data/dataset.py)
 
 
 def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
-                    action_dim=4, remat=False):
+                    action_dim=4, remat=False, unroll=None):
     """Loss of one concurrent-mode batch: the net emits all k actions at
-    once and the dynamics unroll them from the drone-centric state."""
+    once and the dynamics unroll them from the drone-centric state, by
+    default in one fused :func:`quad_rollout`; ``unroll(dyn_params, states,
+    actions, dt) -> (B, k, 12)`` replaces it (a learnt model's unroll, for
+    instance)."""
     in_state, current_state, in_ref, rel_ref = quad_prepare_data(states, refs)
     action_seq = torch.sigmoid(net(in_state, in_ref)).reshape(
         -1, horizon, action_dim
     )
-    inter = quad_rollout(dyn_params, current_state, action_seq, dt,
-                         remat=remat)
+    if unroll is None:
+        inter = quad_rollout(dyn_params, current_state, action_seq, dt,
+                             remat=remat)
+    else:
+        inter = unroll(dyn_params, current_state, action_seq, dt)
     return quad_mpc_loss(inter, rel_ref, action_seq)
 
 
 def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
-                          remat=False):
+                          remat=False, unroll=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
     ``optimizer`` on ``net``. ``remat`` recomputes each dynamics step in
     the backward pass on the CPU twin; the kernel path keeps only the
-    rollout's outputs and recomputes nothing."""
+    rollout's outputs and recomputes nothing. ``unroll``: see
+    :func:`concurrent_loss`."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = concurrent_loss(net, dyn_params, states, refs, dt, horizon,
-                               action_dim, remat)
+                               action_dim, remat, unroll)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -155,6 +164,26 @@ def build_recurrent_step(net, optimizer, dt, horizon, lstm=False,
     return step
 
 
+def _take_base_width(cfg, base_model):
+    """Set ``cfg["hidden"]`` to the width ``base_model`` was trained with,
+    if its config records one; a different width asked for by ``cfg``
+    raises ValueError."""
+    path = os.path.join(base_model, "config.json")
+    if not os.path.isfile(path):
+        return
+    with open(path) as f:
+        base_hidden = json.load(f).get("hidden")
+    if base_hidden is None:
+        return
+    if cfg.get("hidden", base_hidden) != base_hidden:
+        raise ValueError(
+            f"--base_model was trained with hidden={base_hidden} but this "
+            f"config asks for hidden={cfg['hidden']}; drop the override or "
+            f"match the base width"
+        )
+    cfg["hidden"] = base_hidden
+
+
 def _not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1: {item})"
@@ -187,8 +216,6 @@ class TrainQuad:
             raise ValueError(
                 "train_mode must be concurrent, autoregressive, or LSTM"
             )
-        if base_model is not None:
-            raise _not_ported("resuming from base_model", "extras")
         if float(minjerk_mix) != 0.0:
             raise _not_ported("minjerk_mix > 0", "extras")
         if cfg.get("checkpoint_backend", "npz") != "npz":
@@ -225,6 +252,8 @@ class TrainQuad:
         # draw from a torch generator
         self.rng = np.random.RandomState(seed)
         self.generator = torch.Generator().manual_seed(seed)
+        if base_model is not None:
+            _take_base_width(cfg, base_model)
         if self.mode == "LSTM":
             self.lstm_hidden = cfg.get("hidden", 8)
             self.net = LSTMNet(
@@ -244,6 +273,27 @@ class TrainQuad:
         self.optimizer = sgd_momentum(
             self.net.parameters(), cfg["learning_rate_controller"]
         )
+        if base_model is not None:
+            # resume or fine-tune: the saved weights, momentum (zero if the
+            # run saved none) and curriculum scalars, this config's rate
+            net, self.optimizer, base_cfg = restore_train_state(
+                base_model, resume_name(base_model, "model_quad"),
+                self.device,
+            )
+            if type(net) is not type(self.net) or [
+                    p.shape for p in net.parameters()] != [
+                    p.shape for p in self.net.parameters()]:
+                raise ValueError(
+                    f"--base_model {base_model} holds a net that does not "
+                    f"fit the {self.mode} mode of this config"
+                )
+            self.net = net
+            for group in self.optimizer.param_groups:
+                group["lr"] = cfg["learning_rate_controller"]
+            self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
+            if curriculum:
+                self.speed_factor = base_cfg.get("speed_factor",
+                                                 self.speed_factor)
         if self.mode == "concurrent":
             self._train_step = build_concurrent_step(
                 self.net, self.optimizer, self.dt, self.horizon,
@@ -463,6 +513,8 @@ def main(argv=None):
                         metavar="KEY=VALUE",
                         help="override a config key (JSON-parsed value; "
                              "repeatable), e.g. -o speed_factor=0.4")
+    parser.add_argument("--base_model", default=None,
+                        help="checkpoint dir to resume or fine-tune from")
     parser.add_argument("--data_dir", default="data/traj_data",
                         help="trajectory bank directory (generated on "
                              "first use)")
@@ -477,7 +529,7 @@ def main(argv=None):
         {**load_config("quad"), **overrides}, train_mode=args.mode,
         seed=args.seed, save_name=args.save_name,
         curriculum=not args.no_curriculum, data_dir=args.data_dir,
-        device="cpu" if args.cpu else "cuda",
+        base_model=args.base_model, device="cpu" if args.cpu else "cuda",
     )
     trainer.fit(args.epochs)
 

@@ -13,7 +13,7 @@ target error.
 Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.train_wing \\
-        -s NAME [--epochs N] [--seed S] [--smoke] [--cpu]
+        -s NAME [--epochs N] [--seed S] [--base_model DIR] [--smoke] [--cpu]
 """
 
 import argparse
@@ -47,6 +47,8 @@ from apg_trajectory_tracking_tpu_torch.training.common import (
 )
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     checkpoint_exists,
+    restore_train_state,
+    resume_name,
     save_train_state,
 )
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
@@ -54,9 +56,10 @@ from apg_trajectory_tracking_tpu_torch.utils.logging import ResultsLogger
 
 
 def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
-              horizon):
-    """Loss of one wing batch: the net emits all k actions at once and the
-    wing unrolls them from the batch's states."""
+              horizon, dyn_step=wing_step):
+    """Loss of one wing batch: the net emits all k actions at once and
+    ``dyn_step`` (the wing, or a learnt model of it) unrolls them from the
+    batch's states."""
     normed, current_state, rel_ref, target_pos = wing_prepare_data(
         states, ref_pos, mean, std, dt=dt, horizon=horizon
     )
@@ -64,13 +67,14 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
     inter = []
     state = current_state
     for t in range(horizon):
-        state = wing_step(dyn_params, state, action_seq[:, t], dt_train)
+        state = dyn_step(dyn_params, state, action_seq[:, t], dt_train)
         inter.append(state)
     return fixed_wing_mpc_loss(torch.stack(inter, dim=1), target_pos,
                                action_seq)
 
 
-def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std):
+def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,
+                    dyn_step=wing_step):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
     ``optimizer`` on ``net``; ``mean``/``std`` are tensors on the net's
     device."""
@@ -78,7 +82,7 @@ def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std):
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = wing_loss(net, dyn_params, states, refs, mean, std, dt_train,
-                         dt, horizon)
+                         dt, horizon, dyn_step)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -91,7 +95,7 @@ class TrainWing:
 
     def __init__(self, config=None, seed=0, save_name="test",
                  modified_params=None, eval_modified_params=None,
-                 device="cuda"):
+                 base_model=None, device="cuda"):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("wing"))
         if cfg.get("checkpoint_backend", "npz") != "npz":
@@ -130,6 +134,18 @@ class TrainWing:
         ).to(self.device)
         self.optimizer = sgd_momentum(self.net.parameters(),
                                       cfg["learning_rate_controller"])
+        if base_model is not None:
+            # resume or fine-tune: the saved weights, momentum (zero if the
+            # run saved none) and thresholds, this config's rate
+            self.net, self.optimizer, base_cfg = restore_train_state(
+                base_model, resume_name(base_model, "model_wing"),
+                self.device,
+            )
+            for group in self.optimizer.param_groups:
+                group["lr"] = cfg["learning_rate_controller"]
+            self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
+            self.thresh_stable = base_cfg.get("thresh_stable",
+                                              self.thresh_stable)
         self.mean = torch.as_tensor(WING_MEAN, device=self.device)
         self.std = torch.as_tensor(WING_STD, device=self.device)
         self._train_step = build_wing_step(
@@ -266,6 +282,8 @@ def main(argv=None):
     parser.add_argument("-s", "--save_name", default="test")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--base_model", default=None,
+                        help="checkpoint dir to resume or fine-tune from")
     parser.add_argument("--cpu", action="store_true",
                         help="train on the CPU instead of the card")
     parser.add_argument("--smoke", action="store_true",
@@ -276,7 +294,8 @@ def main(argv=None):
         overrides = {"self_play": 200, "nr_epochs": 2, "epoch_size": 64}
     trainer = TrainWing(
         {**load_config("wing"), **overrides}, seed=args.seed,
-        save_name=args.save_name, device="cpu" if args.cpu else "cuda",
+        save_name=args.save_name, base_model=args.base_model,
+        device="cpu" if args.cpu else "cuda",
     )
     trainer.fit(args.epochs)
 

@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero:
      main path: one launch of each kernel per step) and 1 epoch each in
      the autoregressive and LSTM modes (horizon launches of each kernel
      per step, at k = 1), and ``TrainWing`` from
-     ``configs/wing_config.json`` for 1 epoch (no rollout kernel); each
+     ``configs/wing_config.json`` with 1000 of its 2000 self-play rows for
+     1 epoch (no rollout kernel); each
      with a finite loss and a checkpoint that reloads bit-equal;
   7. timings: the concurrent, autoregressive, LSTM and wing train steps
      at B = 8 (the shipped configs' batch) and B = 4096, and each kernel
@@ -58,13 +59,30 @@ Phases, in order; any failure exits non-zero:
      CEM controllers on the card and on the CPU, the CPU's closed loop
      driving both, with each episode's choice of start and costs logged.
      The eager solvers launch tens of thousands of kernels per control
-     step, so a whole 250-step swing-up protocol does not fit in this run.
+     step, so a whole 250-step swing-up protocol does not fit in this run;
+  12. adaptation, each leg (evaluation, dynamics fit, controller epoch)
+     with its launch counts set to 0 just before each call and read just
+     after: ``TrainQuadAdapt`` with the settings of
+     ``scripts/adapt_quad.py`` (from ``assets/quad_trained_9k``, 512 + 256
+     buffer rows, speed 0.4, the rate/drag sysid at base_lr 0.02, the
+     translational-drag x1.9 plant) for 3 epochs, two of them fitting the
+     dynamics (no kernel) and one training the controller against the
+     learnt model (10 launches of each kernel per step, at k = 1); after
+     the sysid, one controller step on the kernels held against the same
+     step on the plain twin; the one-step gaps, the true-plant eval and a
+     bit-equal reload; the controller and fit steps timed. Then
+     ``TrainWingAdapt`` (from ``assets/wing_trained``, CL_alpha 3.0 and
+     CD0 0.15, 64 + 64 rows, the config's l2 0.01) for 2 epochs and
+     ``TrainCartpoleAdapt`` (wind 0.5, 256 states) for 3, with no kernel,
+     finite losses and models, and the cartpole's learnt step on the card
+     against the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import copy
 import ctypes
 import functools
 import json
@@ -140,6 +158,25 @@ CEM_PLAN_ATOL = 1e-3
 # hover, 10 iterations. On the CPU float32 and float64 solves of these
 # states differ by up to 4.8e-4 in u and 1.8e-7 relative in cost
 ILQR_HOVER_ATOL, ILQR_HOVER_COST_RTOL = 2e-3, 1e-4
+
+# phase 6's wing path at half the config's 2000 self-play rows (125 steps
+# instead of 250, and half the ring-filling flights before epoch 0), to
+# keep the whole run near 300 s
+PHASE6_WING_CFG = {"self_play": 1000}
+# phase 12: scripts/adapt_quad.py's settings and its translational-drag
+# cell, 2 fit epochs then 1 controller epoch; the wing and cartpole
+# adaptations at the sizes of the JAX package's adaptation tests
+ADAPT_QUAD_CFG = {"epoch_size": 512, "self_play": 0.5, "speed_factor": 0.4,
+                  "learning_rate_base": 0.02}
+ADAPT_QUAD_CELL = "trans"
+ADAPT_WING_CFG = {"epoch_size": 64, "self_play": 64, "batch_size": 8}
+ADAPT_WING_MISMATCH = {"CL_alpha": 3.0, "CD0": 0.15}
+ADAPT_CARTPOLE_CFG = {"sample_data": 256}
+# a learnt step on the card against the CPU: the single-step bar of the
+# dynamics tests
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
+# (timed, profiled) runs of the adaptation's controller and fit steps
+ADAPT_STEP_RUNS = (10, 3)
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -611,8 +648,8 @@ def phase_training(device):
         reset_launches()
         t0 = time.perf_counter()
         if path == "wing":
-            trainer = TrainWing(load_config("wing"), save_name=save_name,
-                                device=device)
+            trainer = TrainWing(load_config("wing", PHASE6_WING_CFG),
+                                save_name=save_name, device=device)
         else:
             trainer = TrainQuad(
                 load_config("quad"), train_mode=path, save_name=save_name,
@@ -1221,6 +1258,284 @@ def phase_swingup_solvers(device):
                                  f"{max(gaps):.3e} (> {CEM_PLAN_ATOL})")
 
 
+def count_legs(trainer, names):
+    """Wrap each method ``names`` of ``trainer`` so that every call sets
+    the launch counts to 0 just before and reads them just after -> {name:
+    {"calls", "s", kernel: launches}}, summed over the calls."""
+    legs = {}
+    for name in names:
+        leg = legs[name] = {"calls": 0, "s": 0.0, "quad_rollout_fwd": 0,
+                            "quad_rollout_bwd": 0}
+
+        def wrapped(*args, _fn=getattr(trainer, name), _leg=leg, **kwargs):
+            reset_launches()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            launches = read_launches()
+            _leg["s"] += time.perf_counter() - t0
+            _leg["calls"] += 1
+            for key, n in launches.items():
+                _leg[key] += n
+            return out
+
+        setattr(trainer, name, wrapped)
+    return legs
+
+
+def path_launches(legs):
+    return {key: sum(leg[key] for leg in legs.values())
+            for key in ("quad_rollout_fwd", "quad_rollout_bwd")}
+
+
+def check_finite_model(tag, ld):
+    from apg_trajectory_tracking_tpu_torch.dynamics.learnt import (
+        learnt_leaves,
+    )
+
+    bad = [path for path, t in learnt_leaves(ld)
+           if not torch.isfinite(t).all()]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite model leaves {bad}")
+
+
+def check_finite_losses(tag, results):
+    for key in ("loss_dyn", "loss"):
+        if not all(math.isfinite(v) for v in results.get(key, [])):
+            raise AssertionError(f"{tag}: non-finite {key} {results[key]}")
+
+
+def adapt_step_timing(tag, step):
+    """ms per call of ``step``, kernels per call and the card's busy share,
+    from ``ADAPT_STEP_RUNS``."""
+    timed, profiled = ADAPT_STEP_RUNS
+    step_ms = time_host(step, runs=timed, warmup=2)
+    runs, wall_us = profile_kernels(step, runs=profiled, warmup=1)
+    device_us = sum(us for _, us in runs)
+    row = {"step": tag, "batch": TRAIN_B, "step_ms": step_ms,
+           "kernels_per_step": len(runs) / profiled,
+           "device_busy_share": device_us / wall_us,
+           "rollout_kernels_share_of_device_time": sum(
+               us for name, us in runs if "quad_rollout" in name)
+           / device_us}
+    log(f"[12] {json.dumps(row)}")
+
+
+def kernel_step_vs_twin(trainer, device):
+    """One controller step against the learnt quad on the kernels and on
+    the plain twin, from copies of the same net, on the same batch."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.learnt import detached
+    from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
+    from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
+    from apg_trajectory_tracking_tpu_torch.training import adapt
+    from apg_trajectory_tracking_tpu_torch.training.train_quad import (
+        concurrent_loss,
+    )
+
+    inner = trainer.inner
+    ld = detached(trainer.ld)
+    rows = torch.arange(TRAIN_B, device=device)
+    states, refs = inner.buffers.states[rows], inner.buffers.refs[rows]
+    out = {}
+    for side, unroll in (
+            ("kernels", adapt.quad_learnt_rollout),
+            ("twin", lambda p, x, u, dt: step_rollout(
+                adapt.quad_learnt_step, p, x, u, dt))):
+        net = copy.deepcopy(inner.net)
+        loss = concurrent_loss(net, ld, states, refs, inner.dt,
+                               inner.horizon, unroll=unroll)
+        loss.backward()
+        out[side] = (loss.detach(), net_to_jax(net, lambda p: p.grad))
+    torch.cuda.synchronize()
+    loss_k, loss_t = out["kernels"][0], out["twin"][0]
+    gaps = []
+    for key, want in out["twin"][1].items():
+        want = torch.from_numpy(want)
+        got = torch.from_numpy(out["kernels"][1][key])
+        atol = BWD_ATOL_REL * want.abs().max().item()
+        gaps.append(max_errs(got, want)[0] / max(atol, 1e-30))
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=atol)
+    log(f"[12] quad controller step after the sysid, kernels vs twin: "
+        f"loss {loss_k.item():.6f} vs {loss_t.item():.6f}; worst gradient "
+        f"gap {max(gaps):.3f} of its atol")
+    torch.testing.assert_close(loss_k, loss_t, rtol=1e-5, atol=0)
+
+
+def phase_adapt_quad(device):
+    """``TrainQuadAdapt`` on the kernels -> the path's launches."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.learnt import detached
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        DEFAULT_QUAD_CFG,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
+        increase_param,
+    )
+    from apg_trajectory_tracking_tpu_torch.training import adapt
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+
+    save_name = "chip_smoke_adapt_quad"
+    shutil.rmtree(os.path.join("trained_models", "quad", save_name),
+                  ignore_errors=True)
+    param, factor = adapt.QUAD_CELLS[ADAPT_QUAD_CELL]
+    plant = {param: increase_param(DEFAULT_QUAD_CFG[param], factor)}
+    t0 = time.perf_counter()
+    trainer = adapt.TrainQuadAdapt(
+        load_config("quad", ADAPT_QUAD_CFG), modified_params=plant,
+        base_model=os.path.join(ROOT, "assets", "quad_trained_9k"),
+        train_base_params=adapt.QUAD_SYSID["rate"], save_name=save_name,
+        data_dir=os.path.join(ROOT, "data", "traj_data"), device=device,
+    )
+    inner = trainer.inner
+    log(f"[12] quad: plant {json.dumps(plant)}; {len(inner.buffers.states)} "
+        f"buffer rows; set up in {time.perf_counter() - t0:.1f} s")
+
+    def gaps():
+        return trainer.dynamics_gap(generator=torch.Generator().manual_seed(7))
+
+    gap0 = gaps()
+    kinv0 = trainer.ld.base.kinv_ang_vel_tau.clone()
+    legs = count_legs(trainer, ("evaluate", "evaluate_selection",
+                                "run_dynamics_epoch",
+                                "run_controller_epoch_learnt"))
+    t0 = time.perf_counter()
+    trainer.run_dynamics(nr_epochs=3, train_dyn_for_epochs=1, verbose=False)
+    log(f"[12] quad run_dynamics, 3 epochs, in "
+        f"{time.perf_counter() - t0:.1f} s; legs " + json.dumps(legs))
+    ctrl_steps = inner.steps_taken
+    for name, leg in legs.items():
+        per_step = HORIZON if name == "run_controller_epoch_learnt" else 0
+        for key in ("quad_rollout_fwd", "quad_rollout_bwd"):
+            if leg[key] != per_step * (ctrl_steps if per_step else 1):
+                raise AssertionError(
+                    f"quad adaptation: {name} launched {key} {leg[key]} "
+                    f"times, expected {per_step} per controller step of "
+                    f"{ctrl_steps}")
+    if ctrl_steps != len(inner.buffers.states) // inner.batch_size:
+        raise AssertionError(f"quad adaptation: {ctrl_steps} controller "
+                             f"steps")
+    check_finite_losses("quad adaptation", inner.logger.results)
+    check_finite_model("quad adaptation", trainer.ld)
+    check_checkpoint("quad adaptation", inner, "model_quad_final", device)
+    kinv1 = trainer.ld.base.kinv_ang_vel_tau
+    if torch.equal(kinv1, kinv0):
+        raise AssertionError("quad adaptation: the sysid left kinv as it was")
+    gap1 = gaps()
+    true_plant = trainer.evaluate_mismatched()
+    log(f"[12] quad: losses dyn {inner.logger.results['loss_dyn']} "
+        f"controller {inner.logger.results['loss'][1:]}; one-step gap "
+        f"adapted {gap0[0]:.5f} -> {gap1[0]:.5f}, analytic {gap1[1]:.5f}; "
+        f"identified " + json.dumps({
+            k: getattr(trainer.ld.base, k).tolist()
+            for k in adapt.QUAD_SYSID["rate"]})
+        + "; true plant " + json.dumps(
+            {k: true_plant[k] for k in ("mean_divergence", "ratio_stable",
+                                        "mean_success", "n")}))
+    if not gap1[0] < gap1[1]:
+        raise AssertionError(f"quad adaptation: adapted gap {gap1[0]} is not "
+                             f"below the analytic {gap1[1]}")
+    check_finite("quad true plant", true_plant,
+                 ("mean_divergence", "mean_success", "ratio_stable"))
+    kernel_step_vs_twin(trainer, device)
+
+    # the steps' times, last: these steps move the net
+    ld = detached(trainer.ld)
+    rows = torch.arange(TRAIN_B, device=device)
+    states, refs = inner.buffers.states[rows], inner.buffers.refs[rows]
+    actions = trainer.controller_actions()[rows]
+    adapt_step_timing("quad controller step against the learnt model",
+                      lambda: trainer._ctrl_step(ld, states, refs))
+    adapt_step_timing("quad dynamics fit step",
+                      lambda: trainer._fit_step(ld, trainer.dyn_opt_state,
+                                                inner.eval_dyn, states,
+                                                actions))
+    return path_launches(legs)
+
+
+def phase_adapt_wing_cartpole(device):
+    """``TrainWingAdapt`` and ``TrainCartpoleAdapt``, each with the launch
+    counts set to 0 just before and read just after -> their launches."""
+    from apg_trajectory_tracking_tpu_torch.training import adapt
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+
+    by_path = {}
+    for system in ("wing", "cartpole"):
+        save_name = f"chip_smoke_adapt_{system}"
+        shutil.rmtree(os.path.join("trained_models", system, save_name),
+                      ignore_errors=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        if system == "wing":
+            cfg = load_config("wing", ADAPT_WING_CFG)
+            trainer = adapt.TrainWingAdapt(
+                cfg, modified_params=ADAPT_WING_MISMATCH,
+                base_model=os.path.join(ROOT, "assets", "wing_trained"),
+                save_name=save_name, device=device)
+            inner = trainer.inner
+            if inner.thresh_div < 20 or inner.thresh_stable < 1.5:
+                raise AssertionError(
+                    f"wing adaptation: thresholds {inner.thresh_div}, "
+                    f"{inner.thresh_stable} below 20, 1.5")
+            epochs, fit_epochs = 2, 0
+        else:
+            cfg = load_config("cartpole", ADAPT_CARTPOLE_CFG)
+            trainer = inner = adapt.TrainCartpoleAdapt(
+                cfg, modified_params={"wind": 0.5}, save_name=save_name,
+                device=device)
+            epochs, fit_epochs = 3, 1
+
+        def gaps():
+            return trainer.dynamics_gap(
+                generator=torch.Generator().manual_seed(7))
+
+        gap0 = gaps()
+        trainer.run_dynamics(nr_epochs=epochs,
+                             train_dyn_for_epochs=fit_epochs, verbose=False)
+        gap1 = gaps()
+        launches = read_launches()
+        by_path[f"{system}_adapt"] = launches
+        res = inner.logger.results
+        log(f"[12] {system}: {epochs} epochs in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}; "
+            f"l2_lambda {cfg.get('l2_lambda')}; losses dyn "
+            f"{res['loss_dyn']} controller {res['loss'][1:]}; one-step gap "
+            f"adapted {gap0[0]:.5f} -> {gap1[0]:.5f}, analytic "
+            f"{gap1[1]:.5f}")
+        if any(launches.values()):
+            raise AssertionError(f"{system} adaptation: rollout kernels "
+                                 f"launched {launches}, expected none")
+        check_finite_losses(f"{system} adaptation", res)
+        check_finite_model(f"{system} adaptation", trainer.ld)
+        if not all(math.isfinite(g) for g in gap0 + gap1):
+            raise AssertionError(f"{system} adaptation: gaps {gap0} {gap1}")
+        if system == "wing":
+            true_plant = trainer.evaluate_mismatched()
+            log("[12] wing true plant " + json.dumps(
+                {k: true_plant[k] for k in ("mean_success",
+                                            "mean_steps_alive", "n")}))
+            check_finite("wing true plant", true_plant, ("mean_success",))
+        else:
+            check_learnt_step_card_vs_cpu(trainer, device)
+    return by_path
+
+
+def check_learnt_step_card_vs_cpu(trainer, device):
+    from apg_trajectory_tracking_tpu_torch.training import adapt
+
+    g = torch.Generator().manual_seed(3)
+    states = torch.randn((256, 4), generator=g) * torch.tensor(
+        [1.0, 1.0, 0.5, 1.0])
+    actions = torch.rand((256, 1), generator=g) * 2 - 1
+    card = adapt.cartpole_learnt_step(trainer.ld, states.to(device),
+                                      actions.to(device), trainer.dt)
+    cpu = adapt.cartpole_learnt_step(trainer.ld.to("cpu"), states, actions,
+                                     trainer.dt)
+    gap = max_errs(card.cpu(), cpu)
+    log(f"[12] cartpole learnt step, 256 states, card vs CPU: max abs "
+        f"{gap[0]:.2e}, rel {gap[1]:.2e} (rtol {STEP_RTOL}, atol "
+        f"{STEP_ATOL})")
+    torch.testing.assert_close(card.cpu(), cpu, rtol=STEP_RTOL,
+                               atol=STEP_ATOL)
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -1332,6 +1647,9 @@ def main(argv=None):
     phase_ilqr_hover(device)
     phase_swingup_solvers(device)
     done(11)
+    by_path["quad_adapt"] = phase_adapt_quad(device)
+    by_path.update(phase_adapt_wing_cartpole(device))
+    done(12)
     kernels = []
     for name, rows in timings.items():
         kernels.append({

@@ -21,6 +21,7 @@ SLICE_MODULES = (
     "evaluation.cartpole_eval", "evaluation.robustness", "models.simple",
     "training.train_cartpole", "controllers.mpc", "controllers.ilqr",
     "controllers.cem", "dynamics.unroll",
+    "dynamics.learnt", "training.dynamics_fit", "training.adapt",
 )
 
 

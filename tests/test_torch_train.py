@@ -66,6 +66,7 @@ from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
 
 SHIPPED = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets",
                        "quad_trained_9k", "model_quad.npz")
+SHIPPED_DIR = os.path.dirname(SHIPPED)
 
 
 def _jax_net(seed=0):
@@ -258,10 +259,65 @@ def test_train_quad_refuses_what_is_not_ported(tiny_bank, monkeypatch):
     with pytest.raises(NotImplementedError, match="extras"):
         train_quad.TrainQuad({**cfg, "checkpoint_backend": "orbax"},
                              data_dir=tiny_bank, device="cpu")
-    for kwargs in ({"minjerk_mix": 0.5}, {"base_model": "x"}):
-        with pytest.raises(NotImplementedError, match="extras"):
-            train_quad.TrainQuad(cfg, data_dir=tiny_bank, device="cpu",
-                                 **kwargs)
+    with pytest.raises(NotImplementedError, match="extras"):
+        train_quad.TrainQuad(cfg, data_dir=tiny_bank, device="cpu",
+                             minjerk_mix=0.5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_quad.TrainQuad(cfg, data_dir=tiny_bank)
+
+
+def test_train_quad_resumes_shipped_controller(tiny_bank, tmp_path,
+                                               monkeypatch):
+    """The shipped weights, zero momentum (the asset saved none), its
+    thresh_div and speed, and this config's learning rate (the asset's is
+    1e-6)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _tiny_config()
+    trainer = train_quad.TrainQuad(cfg, data_dir=tiny_bank,
+                                   base_model=SHIPPED_DIR, device="cpu")
+    with np.load(SHIPPED) as data:
+        # copies: a CPU tensor's numpy view follows the train step
+        got = {k: v.copy() for k, v in net_to_jax(trainer.net).items()}
+        assert sorted(got) == sorted(data.files)
+        for key, value in got.items():
+            np.testing.assert_array_equal(value, data[key])
+    assert trainer.optimizer.param_groups[0]["lr"] == 1e-5
+    assert not trainer.optimizer.state
+    assert trainer.thresh_div == pytest.approx(2.0)
+    assert trainer.speed_factor == 0.4
+    assert np.isfinite(trainer.run_epoch())
+    # the train step updates the restored net
+    assert not np.array_equal(net_to_jax(trainer.net)["['fc_out'][0]"],
+                              got["['fc_out'][0]"])
+
+
+def test_train_quad_resumes_its_own_run(tiny_bank, tmp_path, monkeypatch):
+    """A run's own checkpoint: its momentum and thresh_div come back, its
+    width wins over the default, and another width refuses."""
+    monkeypatch.chdir(tmp_path)
+    first = train_quad.TrainQuad({**_tiny_config(), "hidden": 16},
+                                 save_name="first", data_dir=tiny_bank,
+                                 device="cpu")
+    first.thresh_div = 0.7
+    first.run_epoch()
+    first.finalize()
+    trainer = train_quad.TrainQuad(_tiny_config(), data_dir=tiny_bank,
+                                   base_model=first.save_path,
+                                   curriculum=False, device="cpu")
+    assert trainer.config["hidden"] == 16
+    assert trainer.thresh_div == first.thresh_div
+    assert trainer.speed_factor == trainer.config["speed_factor"]
+    for got, want in ((net_to_jax(trainer.net), net_to_jax(first.net)),
+                      (momentum_to_jax(trainer.net, trainer.optimizer),
+                       momentum_to_jax(first.net, first.optimizer))):
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value)
+    with pytest.raises(ValueError, match="hidden=16"):
+        train_quad.TrainQuad({**_tiny_config(), "hidden": 32},
+                             data_dir=tiny_bank, base_model=first.save_path,
+                             device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        train_quad.TrainQuad(_tiny_config(), train_mode="LSTM",
+                             data_dir=tiny_bank, base_model=first.save_path,
+                             device="cpu")

@@ -360,6 +360,43 @@ def test_train_wing_cli_trains_on_cpu(tmp_path, monkeypatch):
             "model_wing_final_opt.npz").is_file()
 
 
+@pytest.mark.parametrize("shipped", [True, False],
+                         ids=["shipped", "own_run"])
+def test_train_wing_resumes_from_base_model(tmp_path, monkeypatch, shipped):
+    """A resume takes the weights, the momentum (none in the shipped
+    checkpoint) and both thresholds of the base run, and this config's
+    learning rate."""
+    monkeypatch.chdir(tmp_path)
+    if shipped:
+        base, name = os.path.dirname(ASSET), "model_wing"
+        momentum = None
+        thresholds = (20.0, 0.8)
+    else:
+        first = train_wing.TrainWing(_tiny_config(), save_name="first",
+                                     device="cpu")
+        first.thresh_div, first.thresh_stable = 7.5, 0.55
+        first.run_epoch()
+        first._save(suffix="_final")
+        base, name = first.save_path, "model_wing_final"
+        momentum = momentum_to_jax(first.net, first.optimizer)
+        thresholds = (first.thresh_div, first.thresh_stable)
+    cfg = {**_tiny_config(), "learning_rate_controller": 3e-4}
+    trainer = train_wing.TrainWing(cfg, base_model=base, device="cpu")
+    with np.load(os.path.join(base, f"{name}.npz")) as data:
+        for key, value in net_to_jax(trainer.net).items():
+            np.testing.assert_array_equal(value, data[key])
+    assert trainer.optimizer.param_groups[0]["lr"] == 3e-4
+    np.testing.assert_allclose((trainer.thresh_div, trainer.thresh_stable),
+                               thresholds, rtol=1e-12)
+    if momentum is None:
+        assert not trainer.optimizer.state
+    else:
+        got = momentum_to_jax(trainer.net, trainer.optimizer)
+        for key, value in momentum.items():
+            np.testing.assert_array_equal(got[key], value)
+    assert np.isfinite(trainer.run_epoch())
+
+
 def test_train_wing_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
