@@ -51,6 +51,7 @@ def follow_trajectories(
     window_len=None,
     net_window=None,
     dyn_step=quad_step,
+    action_transform=torch.sigmoid,
 ):
     """Roll out the controller on a batch of reference trajectories.
 
@@ -66,6 +67,8 @@ def follow_trajectories(
         net_window: rows of it that the net sees (horizon by default).
         dyn_step: (dyn_params, state, action, dt) -> next state, the plant
             (a learnt model's step, for instance).
+        action_transform: the net's output -> actions in [0, 1] (a PPO
+            actor's clip and rescale, for instance).
     Returns dict with:
         divergences: (n_test, max_steps) distance to the reference point.
         valid: (n_test, max_steps) step-executed mask.
@@ -86,7 +89,7 @@ def follow_trajectories(
         in_state, _, in_ref, _ = quad_prepare_data(state, window)
         net_carry, logits = net_apply(net, net_carry, in_state,
                                       in_ref[:, :net_window])
-        actions = torch.sigmoid(logits).reshape(n_test, -1, 4)
+        actions = action_transform(logits).reshape(n_test, -1, 4)
         new_state = dyn_step(dyn_params, state, actions[:, 0], dt)
 
         stable = quad_is_stable(new_state, thresh_stable)
@@ -136,6 +139,7 @@ def run_eval(
     window_len=None,
     net_window=None,
     dyn_step=quad_step,
+    action_transform=torch.sigmoid,
 ):
     """Closed-loop eval on the net's device -> (metrics dict, rollout dict).
 
@@ -153,7 +157,7 @@ def run_eval(
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
         max_steps=max_steps, dt=dt, test_time=test_time, net_apply=net_apply,
         net_carry=net_carry, window_len=window_len, net_window=net_window,
-        dyn_step=dyn_step,
+        dyn_step=dyn_step, action_transform=action_transform,
     )
     metrics = metrics_from_rollout(
         roll["divergences"].cpu().numpy(), roll["valid"].cpu().numpy(),

@@ -23,6 +23,10 @@ from apg_trajectory_tracking_tpu_torch.trajectory.refs import project_to_line
 DES_SPEED = 11.5
 
 
+def _feedforward_apply(net, carry, normed, rel_ref):
+    return carry, net(normed, rel_ref)
+
+
 def waypoint_step_events(state, new_state, targets, line_start, done,
                          dsum, dcnt, npass, thresh_div, thresh_stable):
     """One control step of test-time pass/divergence accounting.
@@ -77,16 +81,24 @@ def fly_to_point(
     dt=0.05,
     test_time=False,
     dyn_step=wing_step,
+    net_apply=_feedforward_apply,
+    net_carry=None,
+    action_transform=torch.sigmoid,
 ):
     """Fly a batch of episodes from level flight toward their targets.
 
     Args:
-        net: the dense ControlNet on the targets' device.
+        net: the controller on the targets' device (the dense ControlNet
+            by default).
         dyn_params: the params of ``dyn_step`` (WingParams for
             :func:`wing_step`) on the same device.
         targets: (n, 3) waypoints (x ~ 50, y/z ~ +-5).
         mean, std: (12,) state normalization stats on the same device.
         dyn_step: (dyn_params, state, action, dt) -> next state, the plant.
+        net_apply: (net, carry, normed, rel_ref) -> (carry, logits).
+        net_carry: the initial carry (None for a feed-forward net).
+        action_transform: logits -> actions in [0, 1]; the first action row
+            of (n, horizon * 4) and (n, 4) outputs alike is flown.
     Returns dict:
         div_target_sum/cnt: per-episode sum and count of target distances;
         passed: (n,) whether the episode passed its target;
@@ -109,7 +121,8 @@ def fly_to_point(
         normed, _, rel_ref, _ = wing_prepare_data(
             state, targets, mean, std, dt=dt, horizon=horizon
         )
-        actions = torch.sigmoid(net(normed, rel_ref)).reshape(n, -1, 4)
+        net_carry, logits = net_apply(net, net_carry, normed, rel_ref)
+        actions = action_transform(logits).reshape(n, -1, 4)
         new_state = dyn_step(dyn_params, state, actions[:, 0], dt)
 
         if test_time:
@@ -180,6 +193,9 @@ def run_eval(
     dt=0.05,
     test_time=False,
     dyn_step=wing_step,
+    net_apply=_feedforward_apply,
+    net_carry=None,
+    action_transform=torch.sigmoid,
 ):
     """Fly ``nr_test`` episodes to targets at x = ``x_dist`` with y and z
     drawn from U(-x_std, x_std) by ``generator``, on the net's device ->
@@ -196,6 +212,8 @@ def run_eval(
         torch.as_tensor(std, device=device),
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
         max_steps=max_steps, dt=dt, test_time=test_time, dyn_step=dyn_step,
+        net_apply=net_apply, net_carry=net_carry,
+        action_transform=action_transform,
     )
     per_ep = (roll["div_target_sum"].cpu().numpy()
               / roll["div_target_cnt"].cpu().numpy())

@@ -278,8 +278,10 @@ class TrainCartpoleAdapt(TrainCartpole):
     def run_dynamics(self, nr_epochs=None, train_dyn_for_epochs=None,
                      train_dyn_every=1, verbose=True):
         cfg = self.config
+        if nr_epochs is None:
+            nr_epochs = cfg["nr_epochs"]
         run_alternation(
-            self, nr_epochs or cfg["nr_epochs"],
+            self, nr_epochs,
             (train_dyn_for_epochs if train_dyn_for_epochs is not None
              else cfg.get("train_dyn_for_epochs", 10)),
             train_dyn_every, verbose,
@@ -532,7 +534,8 @@ class TrainWingAdapt(_BufferAdapt):
     def run_dynamics(self, nr_epochs=None, train_dyn_for_epochs=None,
                      train_dyn_every=1, verbose=True):
         cfg = self.inner.config
-        nr_epochs = nr_epochs or cfg["nr_epochs"]
+        if nr_epochs is None:
+            nr_epochs = cfg["nr_epochs"]
         if train_dyn_for_epochs is None:
             train_dyn_for_epochs = cfg.get("train_dyn_for_epochs", 5)
 
@@ -636,7 +639,7 @@ def _adapt_quad(args, device):
     _print_metrics("mismatched plant before",
                    trainer.evaluate_mismatched())
     _print_gap("before", trainer.dynamics_gap())
-    trainer.run_dynamics(nr_epochs=args.epochs or 25,
+    trainer.run_dynamics(nr_epochs=25 if args.epochs is None else args.epochs,
                          train_dyn_for_epochs=args.dyn_epochs
                          if args.dyn_epochs is not None else 8)
     _print_gap("after", trainer.dynamics_gap())
@@ -661,7 +664,7 @@ def _adapt_wing(args, device):
     _print_metrics("mismatched plant before", trainer.evaluate_mismatched())
     _print_gap("before", trainer.dynamics_gap(
         generator=torch.Generator().manual_seed(7)))
-    trainer.run_dynamics(nr_epochs=args.epochs or 30,
+    trainer.run_dynamics(nr_epochs=30 if args.epochs is None else args.epochs,
                          train_dyn_for_epochs=args.dyn_epochs
                          if args.dyn_epochs is not None else 10)
     _print_gap("after", trainer.dynamics_gap(

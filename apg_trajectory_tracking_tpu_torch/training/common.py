@@ -1,6 +1,7 @@
 """Shared training machinery: optimizers, minibatch shuffling, config
 loading (counterpart of the JAX package's ``training/common.py``)."""
 
+import dataclasses
 import json
 import os
 
@@ -32,6 +33,43 @@ def adam_update(grad, mu, nu, count, lr):
     mu_hat = mu / (1 - np.float32(ADAM_B1) ** np.float32(count))
     nu_hat = nu / (1 - np.float32(ADAM_B2) ** np.float32(count))
     return mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS) * -lr, mu, nu
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's step count and one (mu, nu) pair per parameter of a module."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+def adam_init(module):
+    zeros = [torch.zeros_like(p) for p in module.parameters()]
+    return AdamState(0, zeros, [z.clone() for z in zeros])
+
+
+@torch.no_grad()
+def adam_step(module, grads, opt, lr, max_grad_norm=None):
+    """One ``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))``
+    update of the module's parameters (``grads`` in ``parameters()``
+    order), in place; ``max_grad_norm`` None clips nothing."""
+    if max_grad_norm is not None:
+        grads = clip_by_global_norm(grads, max_grad_norm)
+    opt.count += 1
+    for i, (p, g) in enumerate(zip(module.parameters(), grads)):
+        update, opt.mu[i], opt.nu[i] = adam_update(g, opt.mu[i], opt.nu[i],
+                                                   opt.count, lr)
+        p.add_(update)
+
+
+def clip_by_global_norm(grads, max_norm):
+    """``optax.clip_by_global_norm``: every gradient scaled by ``max_norm /
+    norm`` when the global norm over all of them reaches ``max_norm``. No
+    host round trip: the clip is a select on the device."""
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    return [torch.where(g_norm < max_norm, g, g / g_norm * max_norm)
+            for g in grads]
 
 
 def shuffled_batches(generator, n_data, batch_size):

@@ -25,7 +25,10 @@ from apg_trajectory_tracking_tpu_torch.dynamics.learnt import (
     learnt_replace,
     residual_l2,
 )
-from apg_trajectory_tracking_tpu_torch.training.common import adam_update
+from apg_trajectory_tracking_tpu_torch.training.common import (
+    adam_update,
+    clip_by_global_norm,
+)
 
 CLIP_NORM = 5.0
 
@@ -78,10 +81,7 @@ class MaskedDynamicsOptimizer:
         return DynOptState(0, moments, list(moments))
 
     def step(self, ld, grads, state):
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        # no host round trip: the clip is a select on the device
-        clipped = [torch.where(g_norm < CLIP_NORM, g, g / g_norm * CLIP_NORM)
-                   for g in grads]
+        clipped = clip_by_global_norm(grads, CLIP_NORM)
         count = state.count + 1
         leaves, mus, nus = [], [], []
         for label, (_, t), g, mu, nu in zip(

@@ -75,7 +75,20 @@ Phases, in order; any failure exits non-zero:
      CD0 0.15, 64 + 64 rows, the config's l2 0.01) for 2 epochs and
      ``TrainCartpoleAdapt`` (wind 0.5, 256 states) for 3, with no kernel,
      finite losses and models, and the cartpole's learnt step on the card
-     against the CPU.
+     against the CPU;
+  13. the baselines, each path with its launch counts set to 0 just
+     before it and read just after: one PPO train iteration of each env
+     (cartpole, quad with the mpc reward, wing) at 16 envs x 128 steps on
+     the card and on the CPU from the same draws, then 3 more on the card,
+     and ``evaluate_policy`` of the quad (one forward-kernel launch per
+     env step, none of the backward); the shipped PPO controllers
+     (``assets/quad_ppo_2m``, ``quad_ppo_mpc_2m`` through ``run_eval`` on
+     the 20 test references at speed 0.4, lifted 3 m; ``wing_ppo_500k`` to
+     10 waypoints; ``cartpole_ppo_500k`` from 10 starts) on card and CPU;
+     one PETS trial per system (the quad's plant one forward launch per
+     env step), the shipped PETS ensembles flown on the card under the
+     head-to-head evaluators, and 3 control steps of each on card and CPU
+     from the same draws (plans within 1e-3, the same elites).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -177,6 +190,51 @@ ADAPT_CARTPOLE_CFG = {"sample_data": 256}
 STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
 # (timed, profiled) runs of the adaptation's controller and fit steps
 ADAPT_STEP_RUNS = (10, 3)
+# phase 13: PPO at the CLI's width (16 envs x 128 steps, PPOConfig's 10
+# epochs of 8 minibatches; the quad env with the mpc reward at speed 0.4,
+# as assets/quad_ppo_mpc_2m was trained), one iteration per env on card
+# and CPU from the same draws, then PPO_CARD_ITERS more on the card;
+# evaluate_policy at its defaults (20 episodes, 500 steps)
+PPO_ENVS, PPO_STEPS, PPO_CARD_ITERS = 16, 128, 3
+PPO_SPEED = 0.4
+PPO_EVAL_EPISODES, PPO_EVAL_STEPS = 20, 500
+# card vs CPU after one iteration: every parameter within PPO_PARAM_ATOL,
+# or within Adam's step bound (lr per update) on a leaf whose gradient is
+# at float roundoff
+PPO_PARAM_ATOL = 1e-4
+# the shipped PPO and PETS controllers, card vs CPU: no success flip;
+# divergence and target error within this relative gap
+BASELINE_METRIC_RTOL = 1e-3
+# the shipped cartpole PPO policy is bang-bang: roundoff between two closed
+# loops grows about 4x per step and flips a saturated action within 10
+# steps (tests/test_torch_pets.py), so its velocity is compared over the
+# first 5 steps
+CARTPOLE_PPO_SHORT_STEPS, CARTPOLE_PPO_SHORT_RTOL = 5, 1e-4
+# the wing PPO flight stops at WING_PPO_STEPS of the protocol's 1000: every
+# episode has ended by then (asserted; they pass at about 95 steps), so the
+# metrics are the 1000-step protocol's
+WING_PPO_STEPS = 300
+# PETS: one trial per system of PETS_TRIAL_LENGTH steps after the
+# exploration trial of the same length (the runners' 200 cut), the
+# runners' planner (horizon 10, population 150, 15 elites, 5 particles, 5
+# CEM iterations); the shipped ensembles fly 4 quad references for
+# PETS_QUAD_STEPS control steps, 4 wing targets and 2 cartpole starts for
+# PETS_CARTPOLE_STEPS (the protocol: 50 references for 251 steps, 50
+# targets, 50 starts of 250 steps; a PETS control step takes about 55 ms
+# on the card); then PETS_PLAN_STEPS control steps of PETS_PLAN_EPISODES
+# episodes of each on card and CPU from the same draws, the CPU's closed
+# loop driving both
+PETS_TRIAL_LENGTH = 20
+PETS_QUAD_REFS, PETS_WING_TARGETS, PETS_CARTPOLE_STARTS = 4, 4, 2
+PETS_QUAD_STEPS, PETS_CARTPOLE_STEPS = 100, 50
+PETS_PLAN_STEPS, PETS_PLAN_EPISODES = 3, 2
+PETS_PLAN_ATOL = 1e-3
+# a CEM iteration's returns card vs CPU, relative to the largest |return|
+# (observed 7.6e-6 absolute on returns of about 38: 2e-7). Late iterations
+# pull the population together, so the 15th and 16th returns can tie
+# within that gap (observed: 37.6973991 and 37.6973953 on the CPU, equal
+# on the card), and the card may keep the other one
+PETS_RETURN_RTOL = 1e-5
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -562,9 +620,7 @@ def phase_carried_wing(device):
     asset_dir = os.path.join(ROOT, "assets", "wing_trained")
     cfg = load_config(asset_dir)
     weights = load_checkpoint(asset_dir, "model_wing")
-    yz = (np.random.RandomState(42).rand(10, 2) - 0.5) * 2 * 5.0
-    targets = np.concatenate([np.full((10, 1), 50.0), yz],
-                             axis=1).astype(np.float32)
+    targets = waypoints(10)
     success, states, valid = {}, {}, {}
     for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
         roll = fly_to_point(
@@ -1536,6 +1592,513 @@ def check_learnt_step_card_vs_cpu(trainer, device):
                                atol=STEP_ATOL)
 
 
+def counted(fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read
+    just after -> (its result, launches, seconds)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    launches = read_launches()
+    return out, launches, time.perf_counter() - t0
+
+
+def check_path_launches(tag, launches, forward):
+    """The path launched the forward kernel ``forward`` times and the
+    backward kernel never."""
+    want = {"quad_rollout_fwd": forward, "quad_rollout_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: launched {launches}, expected {want}")
+
+
+def check_ppo_params(tag, card, cpu, lr, n_updates):
+    """Card and CPU parameters after the same iteration: each leaf within
+    PPO_PARAM_ATOL, else within Adam's step bound -> worst gap."""
+    worst = 0.0
+    for key, want in cpu.items():
+        gap = float(np.abs(card[key] - want).max())
+        worst = max(worst, gap)
+        if gap > PPO_PARAM_ATOL:
+            if gap > lr * n_updates:
+                raise AssertionError(f"{tag}: {key} differs by {gap:.3e} "
+                                     f"card vs CPU")
+            log(f"[13] {tag}: {key} differs by {gap:.3e} (inside Adam's "
+                f"step bound {lr * n_updates:.1e})")
+    return worst
+
+
+def phase_ppo(device):
+    """PPO on each env: card vs CPU, then more iterations on the card, and
+    the quad's evaluate_policy -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.baselines import ppo
+
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    cpu = torch.device("cpu")
+    by_path = {}
+    for robot in ("cartpole", "quad", "wing"):
+        out = {}
+        for side, dev in (("card", device), ("cpu", cpu)):
+            env, _, lo, hi = ppo.make_env(robot, dev, speed=PPO_SPEED,
+                                          reward="mpc", data_dir=data_dir)
+            cfg = ppo.PPOConfig(n_envs=PPO_ENVS, n_steps=PPO_STEPS,
+                                act_low=lo, act_high=hi)
+            init, train_iter = ppo.make_ppo(env, cfg, dev)
+            state = init(torch.Generator().manual_seed(0))
+            draws = ppo.draw_iter(torch.Generator().manual_seed(1), env, cfg)
+            (state, metrics), launches, secs = counted(
+                lambda: train_iter(state, draws))
+            out[side] = (env, state, {k: float(v) for k, v in metrics.items()},
+                         launches, secs, train_iter)
+        env, state, metrics, launches, secs, train_iter = out["card"]
+        n_updates = cfg.n_epochs * cfg.n_minibatches
+        worst = check_ppo_params(
+            f"PPO {robot}", ppo.actor_critic_to_jax(state.params),
+            ppo.actor_critic_to_jax(out["cpu"][1].params), cfg.lr, n_updates)
+        cpu_metrics = out["cpu"][2]
+        log(f"[13] PPO {robot} train_iter ({PPO_ENVS} envs x {PPO_STEPS} "
+            f"steps, {n_updates} updates): card {secs:.2f} s, CPU "
+            f"{out['cpu'][4]:.2f} s; launches {launches}; worst parameter "
+            f"gap {worst:.3e}; card " + json.dumps(metrics) + "; CPU "
+            + json.dumps(cpu_metrics))
+        if metrics["mean_episode_len"] != cpu_metrics["mean_episode_len"]:
+            raise AssertionError(f"PPO {robot}: the rollouts' episodes end "
+                                 f"differently on card and CPU")
+        for k in ("loss", "mean_reward"):
+            if not math.isclose(metrics[k], cpu_metrics[k], rel_tol=1e-4,
+                                abs_tol=1e-6):
+                raise AssertionError(f"PPO {robot}: {k} card "
+                                     f"{metrics[k]} vs CPU {cpu_metrics[k]}")
+        per_step = PPO_STEPS if robot == "quad" else 0
+        check_path_launches(f"PPO {robot} train_iter", launches, per_step)
+        by_path[f"ppo_{robot}_train"] = launches
+        times, losses = [], []
+        for _ in range(PPO_CARD_ITERS):
+            (state, m), more, secs = counted(lambda: train_iter(state))
+            check_path_launches(f"PPO {robot} train_iter", more, per_step)
+            times.append(secs)
+            losses.append(float(m["loss"]))
+        log(f"[13] PPO {robot}: {PPO_CARD_ITERS} more iterations on the "
+            f"card, {np.mean(times):.2f} s each ({times}); losses {losses}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"PPO {robot}: non-finite losses {losses}")
+        if robot == "quad":
+            res, launches, secs = counted(lambda: ppo.evaluate_policy(
+                state.params, env, torch.Generator().manual_seed(123),
+                n_episodes=PPO_EVAL_EPISODES, max_steps=PPO_EVAL_STEPS))
+            log(f"[13] PPO quad evaluate_policy ({PPO_EVAL_EPISODES} "
+                f"episodes x {PPO_EVAL_STEPS} steps) in {secs:.2f} s; "
+                f"launches {launches}; " + json.dumps(res))
+            check_path_launches("PPO quad evaluate_policy", launches,
+                                PPO_EVAL_STEPS)
+            check_finite("PPO quad evaluate_policy", res, list(res))
+            by_path["ppo_quad_eval"] = launches
+    return by_path
+
+
+def check_close(tag, got, want, rtol=BASELINE_METRIC_RTOL):
+    if not math.isclose(got, want, rel_tol=rtol, abs_tol=1e-9):
+        raise AssertionError(f"{tag}: card {got} vs CPU {want} (rtol "
+                             f"{rtol})")
+
+
+def check_no_flips(tag, success):
+    flips = [int(i) for i in np.nonzero(success["card"] != success["cpu"])[0]]
+    log(f"[13] {tag}: episodes whose success flag flips card vs CPU: "
+        f"{flips}")
+    if flips:
+        raise AssertionError(f"{tag}: success flips {flips}")
+
+
+def test_references(n=None):
+    """The head-to-head protocol's references from the 200/20 bank:
+    distinct test trajectories in RandomState(42)'s order, at speed 0.4,
+    lifted 3 m -> (refs, ref_len)."""
+    from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
+        ensure_trajectory_bank,
+        load_trajectory_bank,
+        prepare_trajectory,
+    )
+
+    bank = load_trajectory_bank(ensure_trajectory_bank(
+        os.path.join(ROOT, "data", "traj_data")), test=True)
+    n = len(bank) if n is None else n
+    idx = np.random.RandomState(42).choice(len(bank), size=n, replace=False)
+    refs = np.stack([prepare_trajectory(bank[i], DT, PPO_SPEED)
+                     for i in idx])
+    refs[:, :, 2] += 3.0
+    return refs, refs.shape[1] - HORIZON
+
+
+def waypoints(n):
+    """n targets at x = 50 m, y and z from RandomState(42) in +-5 m."""
+    yz = (np.random.RandomState(42).rand(n, 2) - 0.5) * 2 * 5.0
+    return np.concatenate([np.full((n, 1), 50.0), yz],
+                          axis=1).astype(np.float32)
+
+
+def phase_ppo_fixtures(device):
+    """The four shipped PPO controllers on card and CPU -> {path:
+    launches}."""
+    from apg_trajectory_tracking_tpu_torch.baselines import ppo
+    from apg_trajectory_tracking_tpu_torch.data.dataset import (
+        WING_MEAN,
+        WING_STD,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        reset_upright,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation import compare
+    from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import run_eval
+    from apg_trajectory_tracking_tpu_torch.evaluation.wing_eval import (
+        fly_to_point,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+    )
+
+    def actor(name, dev):
+        return ppo.actor_critic_from_jax(load_checkpoint(
+            os.path.join(ROOT, "assets", name), "model_ppo"), dev)
+
+    cpu = torch.device("cpu")
+    by_path = {}
+    refs, ref_len = test_references()
+    for name in ("quad_ppo_2m", "quad_ppo_mpc_2m"):
+        success, metrics = {}, {}
+        for side, dev in (("card", device), ("cpu", cpu)):
+            (m, roll), launches, secs = counted(lambda: run_eval(
+                actor(name, dev), quad_params(), refs, ref_len,
+                thresh_div=1.0, thresh_stable=1.0, horizon=HORIZON, dt=DT,
+                test_time=True, net_apply=compare.ppo_net_apply,
+                action_transform=compare.ppo_action_transform))
+            divs = roll["divergences"].cpu().numpy()
+            valid = roll["valid"].cpu().numpy()
+            success[side] = ((divs < 1.0) & valid).sum(axis=1) == min(
+                251, ref_len + 1)
+            metrics[side] = m
+            log(f"[13] {name} on the {side} ({len(refs)} references) in "
+                f"{secs:.2f} s: " + json.dumps(
+                    {k: m[k] for k in ("mean_divergence", "ratio_stable",
+                                       "mean_success", "n")}))
+            if side == "card":
+                check_path_launches(name, launches, 0)
+                by_path["ppo_quad_fixture_eval"] = launches
+        check_no_flips(name, success)
+        check_close(f"{name} mean_divergence",
+                    metrics["card"]["mean_divergence"],
+                    metrics["cpu"]["mean_divergence"])
+
+    targets = waypoints(10)
+    success, metrics = {}, {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        roll, launches, secs = counted(lambda: fly_to_point(
+            actor("wing_ppo_500k", dev), wing_params({}, device=dev),
+            torch.tensor(targets, device=dev),
+            torch.tensor(WING_MEAN, device=dev),
+            torch.tensor(WING_STD, device=dev), thresh_div=10.0,
+            thresh_stable=3.0, horizon=HORIZON, max_steps=WING_PPO_STEPS,
+            dt=0.05, test_time=True, net_apply=compare.ppo_wing_net_apply,
+            action_transform=compare.ppo_wing_action_transform))
+        if not bool((roll["steps_alive"] < WING_PPO_STEPS).all()):
+            raise AssertionError(f"wing_ppo_500k: an episode is still "
+                                 f"flying after {WING_PPO_STEPS} steps")
+        metrics[side] = compare.wing_point_metrics(roll)
+        success[side] = roll["passed"].cpu().numpy()
+        log(f"[13] wing_ppo_500k on the {side} (10 targets) in {secs:.2f} "
+            f"s: " + json.dumps({k: metrics[side][k] for k in (
+                "mean_target_error", "pass_rate", "mean_steps_alive", "n")}))
+        if side == "card":
+            check_path_launches("wing_ppo_500k", launches, 0)
+            by_path["ppo_wing_eval"] = launches
+    check_no_flips("wing_ppo_500k", success)
+    check_close("wing_ppo_500k mean_target_error",
+                metrics["card"]["mean_target_error"],
+                metrics["cpu"]["mean_target_error"])
+
+    starts = reset_upright(torch.Generator().manual_seed(7), 10)
+    out = {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        params = actor("cartpole_ppo_500k", dev)
+        (full, short), launches, secs = counted(lambda: tuple(
+            compare.eval_cartpole_ppo_balance(
+                params, cartpole_params(), starts, max_steps=steps)
+            for steps in (250, CARTPOLE_PPO_SHORT_STEPS)))
+        out[side] = (full, short)
+        log(f"[13] cartpole_ppo_500k on the {side} (10 starts) in "
+            f"{secs:.2f} s: " + json.dumps({k: full[k] for k in (
+                "mean_stable", "ratio_full", "mean_vel", "n")})
+            + f"; over {CARTPOLE_PPO_SHORT_STEPS} steps mean_vel "
+            f"{short['mean_vel']}")
+        if side == "card":
+            check_path_launches("cartpole_ppo_500k", launches, 0)
+            by_path["ppo_cartpole_eval"] = launches
+    for k in ("mean_stable", "ratio_full"):
+        if out["card"][0][k] != out["cpu"][0][k]:
+            raise AssertionError(f"cartpole_ppo_500k: {k} card "
+                                 f"{out['card'][0][k]} vs CPU "
+                                 f"{out['cpu'][0][k]}")
+    check_close("cartpole_ppo_500k short mean_vel",
+                out["card"][1]["mean_vel"], out["cpu"][1]["mean_vel"],
+                CARTPOLE_PPO_SHORT_RTOL)
+    return by_path
+
+
+def pets_agents(device):
+    """{system: (card agent, CPU agent, state dim, act dim)} with the
+    shipped ensembles and the runners' planner."""
+    from apg_trajectory_tracking_tpu_torch.baselines import pets
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+    )
+
+    specs = {
+        "quad": (12, 4, pets.make_quad_tracking_reward(), 0.0, 1.0),
+        "wing": (12, 4, pets.make_wing_pets_reward(), 0.0, 1.0),
+        "cartpole": (4, 1, pets.cartpole_reward, -1.0, 1.0),
+    }
+    agents = {}
+    for system, (sd, ad, reward, lo, hi) in specs.items():
+        arrays = load_checkpoint(os.path.join(ROOT, "assets",
+                                              f"{system}_pets"), "model_pets")
+        pair = []
+        for dev in (device, torch.device("cpu")):
+            agent = pets.runner_agent(sd, ad, reward, lo, hi, 0, dev)
+            agent.load_model(arrays)
+            pair.append(agent)
+        agents[system] = (*pair, sd, ad)
+    return agents
+
+
+def phase_pets(device):
+    """One PETS trial per system, the shipped ensembles under the
+    head-to-head evaluators on the card, and a few control steps card vs
+    CPU -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.baselines import pets
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        reset_upright,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation import compare
+    from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
+        metrics_from_rollout,
+    )
+
+    by_path = {}
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    for system, run in (("cartpole", pets.run_pets_cartpole),
+                        ("wing", pets.run_pets_wing),
+                        ("quad", functools.partial(pets.run_pets_quad,
+                                                   data_dir=data_dir))):
+        (agent, history), launches, secs = counted(lambda: run(
+            trials=1, trial_length=PETS_TRIAL_LENGTH, verbose=False,
+            device=device))
+        if isinstance(history, list):
+            history = {"rewards": history}
+        env_steps = len(agent.buffer["s"])
+        log(f"[13] PETS {system}: 1 trial of at most {PETS_TRIAL_LENGTH} "
+            f"steps after {PETS_TRIAL_LENGTH} exploration steps in "
+            f"{secs:.2f} s ({env_steps} env steps); launches {launches}; "
+            + json.dumps(history))
+        check_path_launches(f"PETS {system} trial", launches,
+                            env_steps if system == "quad" else 0)
+        if not all(math.isfinite(r) for r in history["rewards"]):
+            raise AssertionError(f"PETS {system}: rewards {history}")
+        by_path[f"pets_{system}_trial"] = launches
+
+    agents = pets_agents(device)
+    refs, ref_len = test_references(PETS_QUAD_REFS)
+    targets = waypoints(PETS_WING_TARGETS)
+    starts = reset_upright(torch.Generator().manual_seed(7),
+                           PETS_CARTPOLE_STARTS).numpy()
+    card = {system: pair[0] for system, pair in agents.items()}
+    roll, launches, secs = counted(lambda: pets.eval_pets_quad_tracking(
+        card["quad"], quad_params(), refs, ref_len,
+        max_steps=PETS_QUAD_STEPS))
+    m = metrics_from_rollout(roll["divergences"], roll["valid"], 1.0,
+                             PETS_QUAD_STEPS, ref_len)
+    steps = roll["control_steps"]
+    log(f"[13] quad_pets ({PETS_QUAD_REFS} references, at most "
+        f"{PETS_QUAD_STEPS} steps) on the card in "
+        f"{secs:.2f} s, {steps} control steps, {1e3 * secs / steps:.1f} ms "
+        f"each; launches {launches}; " + json.dumps(
+            {k: m[k] for k in ("mean_divergence", "ratio_stable",
+                               "mean_success", "n")}))
+    check_path_launches("quad_pets tracking eval", launches, steps)
+    check_finite("quad_pets", m, ("mean_divergence", "mean_success"))
+    by_path["pets_quad_eval"] = launches
+
+    roll, launches, secs = counted(lambda: pets.eval_pets_wing_waypoints(
+        card["wing"], wing_params({}), targets))
+    m = compare.wing_point_metrics(roll)
+    steps = roll["control_steps"]
+    log(f"[13] wing_pets ({PETS_WING_TARGETS} targets) on the card in "
+        f"{secs:.2f} s, {steps} control steps, {1e3 * secs / steps:.1f} ms "
+        f"each; launches {launches}; " + json.dumps(
+            {k: m[k] for k in ("mean_target_error", "pass_rate",
+                               "mean_steps_alive", "n")}))
+    check_path_launches("wing_pets waypoint eval", launches, 0)
+    check_finite("wing_pets", m, ("mean_target_error",))
+    by_path["pets_wing_eval"] = launches
+
+    m, launches, secs = counted(lambda: pets.eval_pets_balance(
+        card["cartpole"], cartpole_params(), starts,
+        max_steps=PETS_CARTPOLE_STEPS))
+    steps = int(round(m["mean_stable"] + 1)) * PETS_CARTPOLE_STARTS
+    log(f"[13] cartpole_pets ({PETS_CARTPOLE_STARTS} starts x "
+        f"{PETS_CARTPOLE_STEPS} steps) on the card in {secs:.2f} s, about "
+        f"{1e3 * secs / steps:.1f} ms per control step; launches "
+        f"{launches}; " + json.dumps({k: m[k] for k in (
+            "mean_stable", "mean_vel", "n")}))
+    check_path_launches("cartpole_pets balance eval", launches, 0)
+    check_finite("cartpole_pets", m, ("mean_stable", "mean_vel"))
+    by_path["pets_cartpole_eval"] = launches
+
+    k = PETS_PLAN_EPISODES
+    pets_plans_card_vs_cpu(agents, refs[:k], targets[:k], starts[:k])
+    return by_path
+
+
+def elites_agree(tag, card, cpu, n_elites):
+    """Card and CPU CEM iterations from the same inputs: returns within
+    PETS_RETURN_RTOL, and the same elite sets, except where the CPU's
+    returns tie at the cut within the card-vs-CPU return gap -> whether
+    the sets were equal."""
+    r_card, r_cpu = card[3], cpu[3]
+    gap = (r_card - r_cpu).abs()
+    scale = r_cpu.abs().max(dim=1, keepdim=True).values.clamp_min(1.0)
+    if (gap / scale).max() > PETS_RETURN_RTOL:
+        raise AssertionError(f"{tag}: returns differ by "
+                             f"{float(gap.max()):.3e} card vs CPU")
+    equal = True
+    for b in range(r_cpu.shape[0]):
+        swapped = set(card[2][b].tolist()) ^ set(cpu[2][b].tolist())
+        if not swapped:
+            continue
+        equal = False
+        cut = torch.sort(r_cpu[b], descending=True).values[n_elites - 1]
+        tie = 2 * float(gap[b].max())
+        far = [j for j in swapped if abs(float(r_cpu[b, j] - cut)) > tie]
+        log(f"[13] {tag}, episode {b}: elites {sorted(swapped)} swap at "
+            f"the cut ({float(cut):.7f}); their CPU returns "
+            f"{[float(r_cpu[b, j]) for j in sorted(swapped)]}, the largest "
+            f"card-vs-CPU return gap {tie / 2:.2e}")
+        if far:
+            raise AssertionError(f"{tag}: elites {far} differ card vs CPU "
+                                 f"beyond a tie at the cut")
+    return equal
+
+
+def pets_plans_card_vs_cpu(agents, refs, targets, starts):
+    """PETS_PLAN_STEPS control steps of each shipped ensemble, card vs CPU
+    from the same draws, the CPU's closed loop driving both. Each CEM
+    iteration runs on both from the CPU's Gaussian: returns within
+    PETS_RETURN_RTOL, the same elites (a swap is allowed only between
+    returns that tie within the card-vs-CPU gap); then the whole plans,
+    within PETS_PLAN_ATOL unless such a tie moved the card's."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+        wing_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        quad_params,
+        quad_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import env_step
+    from apg_trajectory_tracking_tpu_torch.trajectory.refs import (
+        array_ref_window,
+    )
+
+    refs_t = torch.tensor(refs)
+    wing0 = torch.zeros((len(targets), 12))
+    wing0[:, 3] = 11.5
+    quad0 = torch.zeros((len(refs), 12))
+    quad0[:, :3] = refs_t[:, 0, :3]
+    cases = {
+        "quad": (quad0, lambda i: array_ref_window(refs_t, i, 10),
+                 quad_step, quad_params(), 0.1),
+        "wing": (wing0, lambda i: torch.tensor(targets)[:, None].expand(
+            -1, 10, 3), wing_step, wing_params({}), 0.05),
+        "cartpole": (torch.tensor(starts),
+                     lambda i: torch.zeros((len(starts), 10, 0)),
+                     env_step, cartpole_params(), 0.05),
+    }
+    for system, (state, ctx_of, step, params, dt) in cases.items():
+        card, cpu, _, ad = agents[system]
+        planner = cpu.plan
+        gen = torch.Generator().manual_seed(5)
+        n = state.shape[0]
+        prev = torch.zeros((n, 10, ad))
+        plan_gaps, ret_gaps, ties = [], [], 0
+        times = {"card": [], "cpu": []}
+        for i in range(PETS_PLAN_STEPS):
+            draws = planner.draw(gen, n)
+            ctx = ctx_of(i)
+            mean, std = prev, planner.initial_std(prev)
+            no_tie = True
+            for it in range(planner.n_iters):
+                out = {}
+                for side, agent in (("card", card), ("cpu", cpu)):
+                    dev = agent.device
+                    out[side] = [x.cpu() for x in planner.iterate(
+                        agent.model, state.to(dev), mean.to(dev),
+                        std.to(dev), ctx.to(dev),
+                        draws.samples[it].to(dev), draws.members[it].to(dev),
+                        draws.noise[it].to(dev))]
+                ret_gaps.append(float((out["card"][3] - out["cpu"][3])
+                                      .abs().max()))
+                if not elites_agree(f"PETS {system} step {i} iteration {it}",
+                                    out["card"], out["cpu"],
+                                    planner.n_elites):
+                    no_tie = False
+                    ties += 1
+                mean, std = out["cpu"][0], out["cpu"][1]
+            plans = {}
+            for side, agent in (("card", card), ("cpu", cpu)):
+                t0 = time.perf_counter()
+                plans[side] = [x.cpu() for x in agent.plan(
+                    agent.model, state.to(agent.device),
+                    prev.to(agent.device), ctx.to(agent.device),
+                    draws=draws)]
+                times[side].append(time.perf_counter() - t0)
+            gap = max(float((plans["card"][j] - plans["cpu"][j]).abs().max())
+                      for j in range(2))
+            if no_tie:
+                plan_gaps.append(gap)
+            else:
+                log(f"[13] PETS {system} step {i}: a tie at the cut moved "
+                    f"the card's plan by {gap:.3e}; not held to "
+                    f"{PETS_PLAN_ATOL}")
+            prev = plans["cpu"][1]
+            state = step(params, state, plans["cpu"][0], dt)
+        log(f"[13] PETS {system}, {PETS_PLAN_STEPS} control steps of {n} "
+            f"episodes from the same draws: worst return gap card vs CPU "
+            f"{max(ret_gaps):.3e}; elites the same in "
+            f"{len(ret_gaps) - ties} of {len(ret_gaps)} iterations (the "
+            f"rest ties at the cut); worst plan gap "
+            f"{max(plan_gaps, default=float('nan')):.3e} (atol "
+            f"{PETS_PLAN_ATOL}); ms per plan card "
+            f"{1e3 * np.mean(times['card']):.1f}, CPU "
+            f"{1e3 * np.mean(times['cpu']):.1f}")
+        if plan_gaps and max(plan_gaps) > PETS_PLAN_ATOL:
+            raise AssertionError(f"PETS {system}: plans differ by "
+                                 f"{max(plan_gaps):.3e} card vs CPU")
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -1650,6 +2213,17 @@ def main(argv=None):
     by_path["quad_adapt"] = phase_adapt_quad(device)
     by_path.update(phase_adapt_wing_cartpole(device))
     done(12)
+    t13 = time.perf_counter()
+    by_path.update(phase_ppo(device))
+    log(f"[time] phase 13 PPO training legs {time.perf_counter() - t13:.1f} s")
+    t = time.perf_counter()
+    by_path.update(phase_ppo_fixtures(device))
+    log(f"[time] phase 13 PPO fixtures {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_path.update(phase_pets(device))
+    log(f"[time] phase 13 PETS {time.perf_counter() - t:.1f} s")
+    log(f"[time] phase 13 in all {time.perf_counter() - t13:.1f} s")
+    done(13)
     kernels = []
     for name, rows in timings.items():
         kernels.append({

@@ -632,8 +632,83 @@ def test_cli_runs_on_cpu(argv, tiny_bank, tmp_path, monkeypatch, capsys):
     assert "identified params" in out and "[controller]" in out
 
 
-# ---------------------------------------------------------------------------
-# on the card
+def _count_calls(monkeypatch, trainer, names):
+    calls = {name: 0 for name in names}
+    for name in names:
+        def counted(*args, _fn=getattr(trainer, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(trainer, name, counted)
+    return calls
+
+
+def test_zero_epochs_run_no_epoch_cartpole(tmp_path, monkeypatch):
+    """``run_dynamics(nr_epochs=0)`` runs no epoch, as the JAX trainer
+    does, though the config asks for 3."""
+    monkeypatch.chdir(tmp_path)
+    cfg = load_config("cartpole", {"sample_data": 64, "nr_epochs": 3})
+    trainer = adapt.TrainCartpoleAdapt(cfg, device="cpu")
+    calls = _count_calls(monkeypatch, trainer, (
+        "evaluate", "run_dynamics_epoch", "run_controller_epoch_learnt"))
+    trainer.run_dynamics(nr_epochs=0, verbose=False)
+    assert calls == {"evaluate": 0, "run_dynamics_epoch": 0,
+                     "run_controller_epoch_learnt": 0}
+    trainer.run_dynamics(nr_epochs=None, train_dyn_for_epochs=0,
+                         verbose=False)
+    assert calls == {"evaluate": 3, "run_dynamics_epoch": 1,
+                     "run_controller_epoch_learnt": 2}
+
+
+def test_zero_epochs_run_no_epoch_wing(tmp_path, monkeypatch):
+    """The wing's ``run_dynamics(nr_epochs=0)`` fits and trains nothing;
+    only the closing selection eval runs, as in JAX."""
+    monkeypatch.chdir(tmp_path)
+    cfg = load_config("wing", {"self_play": 16, "epoch_size": 16,
+                               "batch_size": 8, "nr_epochs": 3})
+    trainer = adapt.TrainWingAdapt(cfg, base_model=WING_ASSET, device="cpu")
+    calls = _count_calls(monkeypatch, trainer, (
+        "run_dynamics_epoch", "run_controller_epoch_learnt"))
+    evals = []
+    monkeypatch.setattr(trainer, "evaluate", lambda epoch: evals.append(
+        epoch) or {"mean_success": 1.0})
+    trainer.run_dynamics(nr_epochs=0, verbose=False)
+    assert calls == {"run_dynamics_epoch": 0,
+                     "run_controller_epoch_learnt": 0}
+    assert evals == [0]
+
+
+@pytest.mark.parametrize("system, epochs", [("quad", 25), ("wing", 30)])
+def test_cli_passes_zero_epochs_through(system, epochs, monkeypatch):
+    """``--epochs 0`` reaches ``run_dynamics`` as 0; no flag gives the
+    script's default."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake(self, nr_epochs=None, train_dyn_for_epochs=None, **kw):
+        seen.append(nr_epochs)
+        raise Stop
+
+    for cls in (adapt.TrainCartpoleAdapt, adapt.TrainQuadAdapt,
+                adapt.TrainWingAdapt):
+        monkeypatch.setattr(cls, "__init__", lambda self, *a, **k: None)
+        monkeypatch.setattr(cls, "run_dynamics", fake)
+    monkeypatch.setattr(adapt, "_print_gap", lambda *a: None)
+    monkeypatch.setattr(adapt, "_print_metrics", lambda *a: None)
+    monkeypatch.setattr(adapt.TrainQuadAdapt, "evaluate_mismatched",
+                        lambda self: {}, raising=False)
+    monkeypatch.setattr(adapt.TrainWingAdapt, "evaluate_mismatched",
+                        lambda self: {}, raising=False)
+    monkeypatch.setattr(adapt.TrainQuadAdapt, "dynamics_gap",
+                        lambda self, **k: (0.0, 0.0), raising=False)
+    monkeypatch.setattr(adapt.TrainWingAdapt, "dynamics_gap",
+                        lambda self, **k: (0.0, 0.0), raising=False)
+    for argv, want in (([system, "--epochs", "0"], 0), ([system], epochs)):
+        with pytest.raises(Stop):
+            adapt.main(argv + ["--cpu"])
+        assert seen[-1] == want
 # ---------------------------------------------------------------------------
 
 
