@@ -13,7 +13,24 @@ instance), in a fixed-length masked loop:
 A recurrent controller threads a carry through the loop (``net_apply`` +
 ``net_carry``) and sees the first ``net_window`` rows of a ``window_len``
 window (the recurrent modes carry a 2 * horizon window).
+
+:func:`follow_analytic` flies the analytic references (hover, straight,
+circle), whose window is recomputed from the drone's state at each step.
+:func:`load_quad_controller` and :func:`eval_kwargs_for` load any shipped
+or trained quad checkpoint and set the evaluator up for its mode.
+
+Run the evaluation CLI with::
+
+    python -m apg_trajectory_tracking_tpu_torch.evaluation.quad_eval \
+        [-m MODEL|mpc] [-e EPOCH] [-r rand|poly|hover|straight|circle] \
+        [-p eight|curve|flat_eight|sinus] [-a N] [--speed S] [--sweep] \
+        [--data_dir D] [--mpc_dynamics M] [--solver adam|ilqr] \
+        [--mpc_horizon H] [--cpu]
 """
+
+import argparse
+import json
+import os
 
 import numpy as np
 import torch
@@ -27,7 +44,16 @@ from apg_trajectory_tracking_tpu_torch.evaluation.stats import (
     bootstrap_ci,
     wilson_ci,
 )
+from apg_trajectory_tracking_tpu_torch.models.rnn import (
+    init_lstm_state,
+    lstm_net_apply,
+)
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import array_ref_window
+from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+    load_checkpoint,
+    load_config,
+    net_from_jax,
+)
 
 
 def _feedforward_apply(net, carry, in_state, in_ref):
@@ -123,6 +149,64 @@ def follow_trajectories(
     }
 
 
+@torch.no_grad()
+def follow_analytic(
+    net,
+    dyn_params,
+    ref_window_fn,
+    project_fn,
+    init_state,
+    thresh_div=1.0,
+    thresh_stable=1.0,
+    dyn_step=quad_step,
+    max_steps=251,
+    dt=0.1,
+    net_apply=_feedforward_apply,
+    net_carry=None,
+):
+    """Closed loop on an analytic reference (hover, straight, circle).
+
+    The window is recomputed from the drone's state at each step, and an
+    episode ends at its first divergence or instability (test-time
+    semantics; there is no reference to reset onto). Unlike
+    :func:`follow_trajectories`, every step before the end is valid (no
+    ``ref_len``), ``states`` holds the state after each step and the
+    actions are always the sigmoid of the net's output. The window
+    functions set the window's length.
+
+    Args:
+        ref_window_fn: states (n, 12) -> (n, H, 9) min-jerk windows.
+        project_fn: positions (n, 3) -> (n, 3) projections onto the
+            reference.
+        init_state: (n, 12) initial states on the net's device.
+    Returns dict: divergences (n, T), valid (n, T), states (n, T, 12).
+    """
+    n = init_state.shape[0]
+    state = init_state
+    done = torch.zeros(n, dtype=torch.bool, device=state.device)
+    divs, valid, states = [], [], []
+    for _ in range(max_steps):
+        window = ref_window_fn(state)
+        in_state, _, in_ref, _ = quad_prepare_data(state, window)
+        net_carry, logits = net_apply(net, net_carry, in_state, in_ref)
+        actions = torch.sigmoid(logits).reshape(n, -1, 4)
+        new_state = dyn_step(dyn_params, state, actions[:, 0], dt)
+        stable = quad_is_stable(new_state, thresh_stable)
+        proj = project_fn(new_state[:, :3])
+        div = torch.linalg.norm(proj - new_state[:, :3], dim=1)
+        diverged = (div > thresh_div) | ~stable
+        valid.append(~done)
+        state = torch.where(done[:, None], state, new_state)
+        done = done | diverged
+        divs.append(div)
+        states.append(state)
+    return {
+        "divergences": torch.stack(divs, dim=1),
+        "valid": torch.stack(valid, dim=1),
+        "states": torch.stack(states, dim=1),
+    }
+
+
 def run_eval(
     net,
     dyn_params,
@@ -193,3 +277,319 @@ def metrics_from_rollout(divs, valid, thresh_div, max_steps, ref_len):
         "ratio_stable_ci": list(wilson_ci(int(full.sum()), n)),
         "mean_divergence_ci": list(bootstrap_ci(div_mean_per)),
     }
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the CLI
+# ---------------------------------------------------------------------------
+
+
+def resolve_model_dir(model, system):
+    """A ``-m`` argument: a directory holding ``config.json`` as it is,
+    else a run name under ``trained_models/<system>/``."""
+    if os.path.isfile(os.path.join(model, "config.json")):
+        return model
+    return os.path.join("trained_models", system, model)
+
+
+def load_quad_controller(model_path, epoch="", device="cuda"):
+    """Any quad controller checkpoint (concurrent or autoregressive
+    ControlNet, LSTM, wide-window student) -> (net, config); the npz's keys
+    and shapes decide the net."""
+    cfg = load_config(model_path)
+    net = net_from_jax(load_checkpoint(model_path, "model_quad" + epoch),
+                       device)
+    return net, cfg
+
+
+def eval_kwargs_for(cfg, nr_test):
+    """The :func:`run_eval` keywords of a checkpoint's mode: an LSTM's
+    apply and zero carry (cell width ``hidden``, 8 by default), the
+    ``window_len`` when ``ref_length`` is not the horizon, and the
+    ``net_window`` of a wide-window student."""
+    mode = cfg.get("train_mode", "concurrent")
+    kwargs = {}
+    if mode == "LSTM":
+        kwargs["net_apply"] = lstm_net_apply
+        kwargs["net_carry"] = init_lstm_state(nr_test,
+                                              hidden=cfg.get("hidden", 8))
+    ref_length = cfg.get("ref_length", cfg["horizon"])
+    if ref_length != cfg["horizon"]:
+        kwargs["window_len"] = ref_length
+    net_window = cfg.get("net_window", cfg["horizon"])
+    if net_window != cfg["horizon"]:
+        kwargs["net_window"] = net_window
+    return kwargs
+
+
+def _not_ported(flag):
+    return SystemExit(
+        f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1, item "
+        f"6: the plotting, live-view and external-simulator "
+        f"infrastructure)"
+    )
+
+
+def _mpc_main(args, device):
+    """-m mpc: the Adam or iLQR MPC on random test references, one episode
+    after the other, the plant ``quad_step``."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
+        ensure_trajectory_bank,
+        load_trajectory_bank,
+        prepare_trajectory,
+    )
+
+    dt, horizon = 0.1, args.mpc_horizon
+    speed = args.speed or 0.4
+    mpc_kwargs = {}
+    if args.mpc_dynamics == "high_mpc":
+        # the quaternion model's own weights track only y and z; weight
+        # all of position and velocity to track a bank trajectory
+        mpc_kwargs["q_pen"] = [100, 100, 100, 0, 0, 0, 0, 10, 10, 10]
+    mpc = MPC(horizon=horizon, dt=dt, dynamics=args.mpc_dynamics,
+              solver=args.solver, device=device, **mpc_kwargs)
+    bank = load_trajectory_bank(ensure_trajectory_bank(args.data_dir),
+                                test=True)
+    rng = np.random.RandomState(42)
+    dyn = quad_params(device=device)
+    divs_all, stable_all = [], []
+    for _ in range(args.eval):
+        ref = prepare_trajectory(bank[rng.randint(len(bank))], dt, speed)
+        ref[:, 2] += 3.0
+        mpc.reset()
+        state = np.zeros(12, dtype=np.float32)
+        state[:3] = ref[0, :3]
+        divs = []
+        for i in range(min(251, len(ref) - horizon)):
+            actions = mpc.predict_actions(state, ref[i + 1:i + 1 + horizon])
+            if args.mpc_dynamics == "high_mpc":
+                # (thrust m/s^2, body rates rad/s) -> the quad's normalized
+                # action; the map is linear and unclipped, so the planned
+                # command is flown exactly
+                actions = np.concatenate(
+                    [(actions[:, :1] - 9.81 + 7.5) / 15.0,
+                     actions[:, 1:4] + 0.5], axis=1,
+                )
+            with torch.no_grad():
+                state = quad_step(
+                    dyn, torch.as_tensor(state[None], device=device),
+                    torch.as_tensor(actions[:1], dtype=torch.float32,
+                                    device=device), dt,
+                )[0].cpu().numpy()
+            div = np.linalg.norm(ref[i + 1, :3] - state[:3])
+            divs.append(div)
+            if div > 1.0:
+                break
+        divs_all.append(np.mean(divs))
+        stable_all.append(len(divs))
+    print("MPC tracking error: %.3f (%.3f), mean steps %.1f"
+          % (np.mean(divs_all), np.std(divs_all), np.mean(stable_all)))
+
+
+def analytic_setup(ref, cfg, n, device, horizon):
+    """The CLI's analytic reference ``ref`` (hover, straight or circle),
+    started at [0, 0, 3] -> (init_state (n, 12), window_fn, project_fn),
+    windows of ``net_window`` rows."""
+    from apg_trajectory_tracking_tpu_torch.trajectory import refs as R
+
+    dt = cfg["dt"] if "dt" in cfg else cfg["delta_t"]
+    init_state = torch.zeros((n, 12), dtype=torch.float32, device=device)
+    init_state[:, 2] = 3.0
+    max_dist = cfg.get("max_drone_dist", 0.25)
+    win_rows = cfg.get("net_window", horizon)
+    start = torch.tensor([0.0, 0.0, 3.0], device=device)
+    if ref == "hover":
+        def window_fn(s):
+            return R.hover_ref_window(start, s, dt, win_rows)
+
+        def project_fn(p):
+            return start.expand_as(p)
+    elif ref == "straight":
+        line = R.straight_init(start,
+                               torch.tensor([1.0, 0.3, 0.1], device=device))
+
+        def window_fn(s):
+            return R.straight_ref_window(line, s, dt, win_rows, max_dist)
+
+        def project_fn(p):
+            return R.straight_project(line, p)
+    else:
+        circle = R.circle_init(start, torch.tensor([0.0, 1.0, 0.0],
+                                                   device=device),
+                               radius=2.0, direction=1.0, plane=(0, 1))
+
+        def window_fn(s):
+            return R.circle_ref_window(circle, s, dt, win_rows, max_dist,
+                                       (0, 1))
+
+        def project_fn(p):
+            return R.circle_project(circle, p, (0, 1))
+    return init_state, window_fn, project_fn
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Evaluate a quad controller with the PyTorch port (on "
+                    "the card unless --cpu).")
+    parser.add_argument("-m", "--model", default="test",
+                        help="checkpoint dir, run name under "
+                             "trained_models/quad/, or mpc")
+    parser.add_argument("-e", "--epoch", default="")
+    parser.add_argument("-r", "--ref", default="rand",
+                        choices=["rand", "poly", "hover", "straight",
+                                 "circle"])
+    parser.add_argument("-p", "--points", default=None,
+                        choices=["eight", "curve", "flat_eight", "sinus"],
+                        help="predefined waypoint set")
+    parser.add_argument("-a", "--eval", type=int, default=10,
+                        help="number of eval runs")
+    parser.add_argument("--speed", type=float, default=None)
+    parser.add_argument("--sweep", action="store_true",
+                        help="robustness sweep over dynamics params")
+    parser.add_argument("--data_dir", default="data/traj_data")
+    parser.add_argument("--cpu", action="store_true",
+                        help="evaluate on the CPU instead of the card")
+    parser.add_argument("--mpc_dynamics", default="flightmare",
+                        choices=["flightmare", "simple_quad", "high_mpc"],
+                        help="internal model for -m mpc")
+    parser.add_argument("--solver", default="adam", choices=["adam", "ilqr"],
+                        help="OCP solver for -m mpc")
+    parser.add_argument("--mpc_horizon", type=int, default=10,
+                        help="planning horizon for -m mpc")
+    parser.add_argument("--animate", default=None, metavar="FILE.gif",
+                        help="not ported (ROADMAP.md queue 1 item 6)")
+    parser.add_argument("--external_sim", default=None,
+                        choices=["native", "mock"],
+                        help="not ported (ROADMAP.md queue 1 item 6)")
+    parser.add_argument("--live", nargs="?", type=int, const=-1,
+                        default=None, metavar="N",
+                        help="not ported (ROADMAP.md queue 1 item 6)")
+    args = parser.parse_args(argv)
+    for flag, value in (("--animate", args.animate),
+                        ("--live", args.live),
+                        ("--external_sim", args.external_sim)):
+        if value is not None:
+            raise _not_ported(flag)
+
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        DEFAULT_QUAD_CFG,
+        quad_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
+        param_sweep,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.model == "mpc":
+        _mpc_main(args, device)
+        return
+
+    net, cfg = load_quad_controller(resolve_model_dir(args.model, "quad"),
+                                    args.epoch, device)
+    speed = args.speed or cfg.get("speed_factor", 0.4)
+    dt, horizon = cfg["dt"] if "dt" in cfg else cfg["delta_t"], cfg["horizon"]
+
+    if args.ref in ("rand", "poly") or args.points is not None:
+        from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
+            ensure_trajectory_bank,
+            load_trajectory_bank,
+            prepare_trajectory,
+        )
+        from apg_trajectory_tracking_tpu_torch.trajectory.refs import (
+            polynomial_reference,
+            waypoint_reference,
+        )
+
+        rng = np.random.RandomState(42)
+
+        def stack_cut(ref_list):
+            T = min(len(r) for r in ref_list)
+            return np.stack([r[:T] for r in ref_list])
+
+        if args.points is not None:
+            from apg_trajectory_tracking_tpu_torch.trajectory.predefined import (
+                collected_trajectories,
+            )
+
+            pts = collected_trajectories[args.points]
+
+            def make_refs():
+                return stack_cut([
+                    waypoint_reference(rng, pts, [0, 0, 3.0], dt=dt)
+                    for _ in range(args.eval)
+                ])
+        elif args.ref == "poly":
+            def make_refs():
+                return stack_cut([
+                    polynomial_reference(rng, [0, 0, 3.0], dt=dt)
+                    for _ in range(args.eval)
+                ])
+        else:
+            bank = load_trajectory_bank(ensure_trajectory_bank(args.data_dir),
+                                        test=True)
+
+            def make_refs():
+                # distinct trajectories when the bank is big enough
+                if args.eval <= len(bank):
+                    idx = rng.choice(len(bank), size=args.eval,
+                                     replace=False)
+                else:
+                    idx = rng.randint(len(bank), size=args.eval)
+                out = np.stack([prepare_trajectory(bank[i], dt, speed)
+                                for i in idx])
+                out[:, :, 2] += 3.0
+                return out
+
+        def eval_with(modified_params):
+            references = make_refs()
+            metrics, _ = run_eval(
+                net, quad_params(modified_params), references,
+                references.shape[1] - horizon, thresh_div=1.0,
+                thresh_stable=1.0, horizon=horizon, dt=dt, test_time=True,
+                **eval_kwargs_for(cfg, references.shape[0]),
+            )
+            return metrics
+
+        if args.sweep:
+            # one eval per parameter value: both numbers from the same
+            # rollouts
+            def sweep_metrics(mp):
+                m = eval_with(mp)
+                return {"err": m["mean_divergence"],
+                        "stable": m["ratio_stable"]}
+
+            results = param_sweep(sweep_metrics, DEFAULT_QUAD_CFG)
+            print(json.dumps(results, indent=1, default=float))
+            return
+        metrics = eval_with({})
+        print("Average tracking error: %.2f (%.2f)"
+              % (metrics["mean_divergence"], metrics["std_divergence"]))
+        print("Ratio of stable runs: %.2f" % metrics["ratio_stable"])
+        print(json.dumps(metrics, default=float))
+        return
+
+    n = args.eval
+    init_state, window_fn, project_fn = analytic_setup(args.ref, cfg, n,
+                                                       device, horizon)
+    an_kwargs = {}
+    if cfg.get("train_mode") == "LSTM":
+        an_kwargs["net_apply"] = lstm_net_apply
+        an_kwargs["net_carry"] = init_lstm_state(
+            n, hidden=cfg.get("hidden", 8), device=device)
+    roll = follow_analytic(
+        net, quad_params(device=device), window_fn, project_fn, init_state,
+        thresh_div=1.0, thresh_stable=1.0, dt=dt, **an_kwargs,
+    )
+    divs = roll["divergences"].cpu().numpy()
+    valid = roll["valid"].cpu().numpy()
+    err = (divs * valid).sum() / max(valid.sum(), 1)
+    print(f"{args.ref}: avg divergence {err:.3f}, "
+          f"mean steps before divergence "
+          f"{valid.sum(axis=1).mean():.1f}")
+
+
+if __name__ == "__main__":
+    main()

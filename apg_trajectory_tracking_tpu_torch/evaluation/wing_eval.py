@@ -19,8 +19,22 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
 )
 from apg_trajectory_tracking_tpu_torch.evaluation.stats import bootstrap_ci
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import project_to_line
+from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+    load_checkpoint,
+    load_config,
+    net_from_jax,
+)
 
 DES_SPEED = 11.5
+
+
+def load_wing_controller(model_path, epoch="", device="cuda"):
+    """A wing controller checkpoint (the dense ControlNet) -> (net,
+    config)."""
+    cfg = load_config(model_path)
+    net = net_from_jax(load_checkpoint(model_path, "model_wing" + epoch),
+                       device)
+    return net, cfg
 
 
 def _feedforward_apply(net, carry, normed, rel_ref):

@@ -10,14 +10,16 @@ backpropagates through it and takes an SGD-momentum step. A recurrent step
 k dynamics steps, each one a :func:`quad_rollout` at k = 1. Around them,
 :class:`TrainQuad` runs the epoch loop with the thresh_div and speed
 curricula, closed-loop evaluation, self-play insertion, periodic
-resampling and best-checkpoint selection.
+resampling and best-checkpoint selection. With ``minjerk_mix`` a share of
+the sampled windows is replaced by min-jerk windows toward each window's
+own end point, the shape the analytic references show the net.
 
 Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.train_quad \
         -s NAME [-m concurrent|autoregressive|LSTM] [--epochs N] \
         [--seed S] [--no-curriculum] [--smoke] [-o KEY=VALUE ...] \
-        [--base_model DIR] [--data_dir D] [--cpu]
+        [--base_model DIR] [--minjerk_mix F] [--data_dir D] [--cpu]
 """
 
 import argparse
@@ -53,6 +55,10 @@ from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     load_trajectory_bank,
     prepare_trajectory,
 )
+from apg_trajectory_tracking_tpu_torch.trajectory.minjerk import (
+    min_jerk_reference,
+)
+from apg_trajectory_tracking_tpu_torch.trajectory.refs import _to_state_rows
 from apg_trajectory_tracking_tpu_torch.training.common import (
     load_config,
     sgd_momentum,
@@ -216,8 +222,11 @@ class TrainQuad:
             raise ValueError(
                 "train_mode must be concurrent, autoregressive, or LSTM"
             )
-        if float(minjerk_mix) != 0.0:
-            raise _not_ported("minjerk_mix > 0", "extras")
+        if not 0.0 <= float(minjerk_mix) <= 1.0:
+            raise ValueError(
+                f"minjerk_mix must be in [0, 1], got {minjerk_mix}"
+            )
+        self.minjerk_mix = float(minjerk_mix)
         if cfg.get("checkpoint_backend", "npz") != "npz":
             raise _not_ported("the orbax checkpoint backend", "extras")
 
@@ -317,6 +326,9 @@ class TrainQuad:
         )
         self.buffers = make_quad_buffers(states, refs, num_sampled,
                                          self.device)
+        # the mix draws right after each sampling draw, as the JAX trainer
+        # does, so both pick the same rows from the same seed
+        self._apply_minjerk_mix()
 
         self.save_path = os.path.join("trained_models", "quad", save_name)
         self.logger = ResultsLogger(self.save_path)
@@ -400,6 +412,27 @@ class TrainQuad:
                 speed_factor=self.data_speed_factor,
             )
             self.buffers = replace_sampled(self.buffers, states, refs)
+            self._apply_minjerk_mix()
+
+    def _apply_minjerk_mix(self):
+        """Replace ``minjerk_mix`` of the sampled windows, rows drawn
+        without replacement, with min-jerk windows from each row's state to
+        its window's last row (position and velocity), in the [pos, 0, vel]
+        row layout. The self-play ring is left alone: eval rollouts
+        overwrite it between resamples."""
+        if self.minjerk_mix <= 0:
+            return
+        n = self.buffers.num_sampled
+        idx = torch.as_tensor(
+            self.rng.choice(n, int(self.minjerk_mix * n), replace=False),
+            device=self.device,
+        )
+        states = self.buffers.states[idx]
+        last = self.buffers.refs[idx, -1]
+        self.buffers.refs[idx] = _to_state_rows(min_jerk_reference(
+            states[:, :3], states[:, 6:9], torch.zeros_like(states[:, :3]),
+            last[:, :3], last[:, 6:9], self.dt, self.ref_length,
+        ))
 
     def _speed_curriculum(self, epoch):
         """Raise the replay speed by 0.1 (up to 0.4) after five good epochs
@@ -468,7 +501,7 @@ class TrainQuad:
                 "mean": self.buffers.mean.tolist(),
                 "std": self.buffers.std.tolist(),
                 "ref_length": self.ref_length,
-                "minjerk_mix": 0.0,
+                "minjerk_mix": self.minjerk_mix,
             },
         )
 
@@ -515,6 +548,10 @@ def main(argv=None):
                              "repeatable), e.g. -o speed_factor=0.4")
     parser.add_argument("--base_model", default=None,
                         help="checkpoint dir to resume or fine-tune from")
+    parser.add_argument("--minjerk_mix", type=float, default=0.0,
+                        help="share of the sampled windows replaced by "
+                             "min-jerk windows (robustness on the analytic "
+                             "references)")
     parser.add_argument("--data_dir", default="data/traj_data",
                         help="trajectory bank directory (generated on "
                              "first use)")
@@ -529,7 +566,8 @@ def main(argv=None):
         {**load_config("quad"), **overrides}, train_mode=args.mode,
         seed=args.seed, save_name=args.save_name,
         curriculum=not args.no_curriculum, data_dir=args.data_dir,
-        base_model=args.base_model, device="cpu" if args.cpu else "cuda",
+        base_model=args.base_model, minjerk_mix=args.minjerk_mix,
+        device="cpu" if args.cpu else "cuda",
     )
     trainer.fit(args.epochs)
 

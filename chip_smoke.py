@@ -88,7 +88,26 @@ Phases, in order; any failure exits non-zero:
      one PETS trial per system (the quad's plant one forward launch per
      env step), the shipped PETS ensembles flown on the card under the
      head-to-head evaluators, and 3 control steps of each on card and CPU
-     from the same draws (plans within 1e-3, the same elites).
+     from the same draws (plans within 1e-3, the same elites);
+  14. the comparison tables' controllers and the analytic references, each
+     path with its launch counts set to 0 just before it and read just
+     after: the quad MPC closed loop (``mpc_follow_trajectories``) of the
+     Adam solve at h = 10 and 50 iterations on 4 test references of the
+     200/20 bank picked by ``quad_references``' rule, 20 control steps on
+     the card and on the CPU (exactly 20 x 50 launches of each kernel on
+     the card), then 2 control steps each at h = 14 and h = 20 with 100
+     iterations and 3 iLQR control steps card vs CPU (no kernel); the
+     rows through ``tracking_metrics`` and ``format_table``; the wing MPC
+     (``mpc_fly_to_point``, h = 10, 10 iterations, 2 control steps to 2
+     targets) and the cartpole MPC (``make_cartpole_mpc_apply`` through
+     ``evaluate_balance``, 2 starts, 2 steps) card vs CPU; the shipped
+     ``quad_minjerk_trained`` and ``quad_trained`` through
+     ``follow_analytic`` on the hover, straight and circle references as
+     the quad eval CLI sets them up (10 episodes, 251 steps) card vs CPU;
+     one epoch of ``TrainQuad`` with ``minjerk_mix`` 0.5 at the shipped
+     config (its mixed windows card vs CPU, one launch of each kernel per
+     step, the mix saved in ``config.json``); both kernels against their
+     plain twins at the table's new shapes (B = 4 and 100, k = 14 and 20).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -235,6 +254,29 @@ PETS_PLAN_ATOL = 1e-3
 # within that gap (observed: 37.6973991 and 37.6973953 on the CPU, equal
 # on the card), and the card may keep the other one
 PETS_RETURN_RTOL = 1e-5
+# phase 14: the quad MPC closed loop of the comparison table (h = 10, 50
+# Adam iterations) on MPC_REFS test references for MPC_STEPS control
+# steps, card vs CPU; the CLI's wider rows (h, iterations) for
+# MPC_WIDE_STEPS steps on the card; ILQR_STEPS iLQR control steps card vs
+# CPU; the wing MPC (WING_MPC_ITERS iterations, h = 10) and the cartpole
+# MPC (50 iterations) for 2 control steps from 2 targets and 2 starts (a
+# 50-iteration wing control step takes about 7 s on the card)
+MPC_REFS, MPC_STEPS, MPC_ITERS_H10 = 4, 20, 50
+MPC_WIDE = ((14, 100), (20, 100))
+MPC_WIDE_STEPS, ILQR_STEPS = 2, 3
+WING_MPC_ITERS, SYSTEM_MPC_STEPS, SYSTEM_MPC_EPISODES = 10, 2, 2
+MPC_CARD_ATOL = 1e-3
+# the analytic flights of the quad eval CLI (its default -a 10, 251 steps)
+ANALYTIC_ASSETS = ("quad_minjerk_trained", "quad_trained")
+ANALYTIC_REFS = ("hover", "straight", "circle")
+ANALYTIC_N, ANALYTIC_STEPS = 10, 251
+ANALYTIC_RTOL = 1e-4
+# the mixed windows card vs CPU, relative to their largest |value| (the
+# positions, up to about 10 m; the card contracts the quintic's
+# multiply-adds, observed 3.05e-5 absolute)
+MINJERK_MIX, MIX_RTOL = 0.5, 1e-5
+# the kernels at the comparison table's shapes
+NEW_B, NEW_K = (4, 100), (14, 20)
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -2099,6 +2141,297 @@ def pets_plans_card_vs_cpu(agents, refs, targets, starts):
                                  f"{max(plan_gaps):.3e} card vs CPU")
 
 
+def mpc_loop(solver, horizon, iters, refs, ref_len, dev, steps):
+    """``steps`` control steps of the quad MPC closed loop on ``dev`` ->
+    (rollout on the host, launches, seconds)."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.evaluation import compare
+
+    mpc = MPC(horizon=horizon, dt=DT, solver=solver, n_iters=iters,
+              device=dev)
+    refs_d = torch.as_tensor(refs, device=dev)
+    params = quad_params(device=dev)
+    roll, launches, secs = counted(lambda: compare.mpc_follow_trajectories(
+        mpc._solve, params, refs_d, ref_len, horizon=horizon,
+        max_steps=steps, dt=DT))
+    return {k: v.cpu().numpy() for k, v in roll.items()}, launches, secs
+
+
+def check_loop_card_vs_cpu(tag, card, cpu, atol=MPC_CARD_ATOL):
+    gap = float(np.abs(card["divergences"] - cpu["divergences"]).max())
+    log(f"[14] {tag}: divergences card vs CPU within {gap:.2e}")
+    if not np.array_equal(card["valid"], cpu["valid"]):
+        raise AssertionError(f"{tag}: valid masks differ card vs CPU")
+    if gap > atol:
+        raise AssertionError(f"{tag}: divergences differ by {gap:.3e}")
+
+
+def check_launches(tag, launches, per_kernel):
+    want = {"quad_rollout_fwd": per_kernel, "quad_rollout_bwd": per_kernel}
+    if launches != want:
+        raise AssertionError(f"{tag}: launched {launches}, expected {want}")
+
+
+def phase_quad_mpc(device):
+    """The quad MPC rows of the comparison table -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import compare
+
+    cpu = torch.device("cpu")
+    refs, n = compare.quad_references(
+        os.path.join(ROOT, "data", "traj_data"), MPC_REFS, DT, PPO_SPEED,
+        bank_train=200, bank_test=20)
+    ref_len = refs.shape[1] - HORIZON
+    by_path = {}
+    rows = {}
+    out = {}
+    for side, dev in (("card", device), ("CPU", cpu)):
+        out[side] = mpc_loop("adam", HORIZON, MPC_ITERS_H10, refs, ref_len,
+                             dev, MPC_STEPS)
+        log(f"[14] MPC (adam) h={HORIZON}, {MPC_ITERS_H10} iterations, "
+            f"{n} references on the {side}: {MPC_STEPS} control steps in "
+            f"{out[side][2]:.2f} s, "
+            f"{out[side][2] / MPC_STEPS * 1e3:.1f} ms per control step; "
+            f"launches {out[side][1]}")
+        rows[f"MPC (adam) {side}"] = compare.tracking_metrics(
+            out[side][0], 1.0, ref_len, max_steps=MPC_STEPS)
+    check_loop_card_vs_cpu("MPC (adam) h=10", out["card"][0], out["CPU"][0])
+    check_launches("MPC (adam) h=10", out["card"][1],
+                   MPC_STEPS * MPC_ITERS_H10)
+    by_path["mpc_adam_h10"] = out["card"][1]
+    for horizon, iters in MPC_WIDE:
+        roll, launches, secs = mpc_loop("adam", horizon, iters, refs,
+                                        ref_len, device, MPC_WIDE_STEPS)
+        log(f"[14] MPC (adam, h={horizon}) {iters} iterations on the card: "
+            f"{MPC_WIDE_STEPS} control steps in {secs:.2f} s, "
+            f"{secs / MPC_WIDE_STEPS * 1e3:.1f} ms per control step; "
+            f"launches {launches}")
+        check_launches(f"MPC (adam, h={horizon})", launches,
+                       MPC_WIDE_STEPS * iters)
+        if not np.isfinite(roll["divergences"]).all():
+            raise AssertionError(f"MPC h={horizon}: non-finite divergences")
+        by_path[f"mpc_adam_h{horizon}"] = launches
+    out = {}
+    for side, dev in (("card", device), ("CPU", cpu)):
+        out[side] = mpc_loop("ilqr", HORIZON, None, refs, ref_len, dev,
+                             ILQR_STEPS)
+        log(f"[14] MPC (ilqr) on the {side}: {ILQR_STEPS} control steps in "
+            f"{out[side][2]:.2f} s, "
+            f"{out[side][2] / ILQR_STEPS * 1e3:.1f} ms per control step; "
+            f"launches {out[side][1]}")
+        rows[f"MPC (ilqr) {side}"] = compare.tracking_metrics(
+            out[side][0], 1.0, ref_len, max_steps=ILQR_STEPS)
+    check_loop_card_vs_cpu("MPC (ilqr)", out["card"][0], out["CPU"][0])
+    check_launches("MPC (ilqr)", out["card"][1], 0)
+    by_path["mpc_ilqr"] = out["card"][1]
+    for name, m in rows.items():
+        check_finite(name, m, ["mean_divergence", "mean_success"])
+    table = compare.format_table(
+        rows, compare.QUAD_COLUMNS,
+        title=f"Quadrotor tracking, {n} test references, the first "
+              f"{MPC_STEPS} (Adam) and {ILQR_STEPS} (iLQR) steps")
+    for line in table.splitlines():
+        log(f"[14] {line}")
+    return by_path
+
+
+def recording(step, states):
+    """``step`` that also keeps every state it returns."""
+
+    def run(*args):
+        out = step(*args)
+        states.append(out.cpu())
+        return out
+
+    return run
+
+
+def phase_system_mpc(device):
+    """The wing and cartpole MPC rows, card vs CPU -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+        wing_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        reset_upright,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation import compare
+    from apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval import (
+        evaluate_balance,
+    )
+
+    targets = waypoints(SYSTEM_MPC_EPISODES)
+    starts = reset_upright(torch.Generator().manual_seed(7),
+                           SYSTEM_MPC_EPISODES)
+    wing, cartpole = {}, {}
+    by_path = {}
+    for side, dev in (("card", device), ("CPU", torch.device("cpu"))):
+        mpc = MPC(horizon=HORIZON, dt=0.05, dynamics="fixed_wing_3D",
+                  n_iters=WING_MPC_ITERS, device=dev)
+        states = []
+        roll, launches, secs = counted(lambda: compare.mpc_fly_to_point(
+            mpc._solve, wing_params({}, dev), torch.as_tensor(targets,
+                                                              device=dev),
+            dyn_step=recording(wing_step, states), horizon=HORIZON,
+            max_steps=SYSTEM_MPC_STEPS, dt=0.05))
+        wing[side] = (torch.stack(states), roll)
+        log(f"[14] wing MPC on the {side}: {SYSTEM_MPC_STEPS} control steps "
+            f"of {WING_MPC_ITERS} iterations in {secs:.2f} s; launches "
+            f"{launches}")
+        if side == "card":
+            check_launches("wing MPC", launches, 0)
+            by_path["mpc_wing"] = launches
+
+        mpc = MPC(horizon=HORIZON, dt=0.05, dynamics="cartpole", device=dev)
+        apply = compare.make_cartpole_mpc_apply(mpc)
+        seen = []
+
+        def recorded(params, states, apply=apply, seen=seen):
+            seen.append(states.cpu())
+            return apply(params, states)
+
+        raw, launches, secs = counted(lambda: evaluate_balance(
+            None, cartpole_params(device=dev), states=starts.to(dev),
+            net_apply=recorded, max_steps=SYSTEM_MPC_STEPS))
+        cartpole[side] = (torch.stack(seen), raw)
+        log(f"[14] cartpole MPC on the {side}: {SYSTEM_MPC_STEPS} control "
+            f"steps in {secs:.2f} s; launches {launches}")
+        if side == "card":
+            check_launches("cartpole MPC", launches, 0)
+            by_path["mpc_cartpole"] = launches
+    gap = float((wing["card"][0] - wing["CPU"][0]).abs().max())
+    log(f"[14] wing MPC states card vs CPU within {gap:.2e}")
+    if gap > MPC_CARD_ATOL:
+        raise AssertionError(f"wing MPC: states differ by {gap:.3e}")
+    for k in ("div_target_cnt", "passed", "steps_alive"):
+        if not torch.equal(wing["card"][1][k].cpu(), wing["CPU"][1][k]):
+            raise AssertionError(f"wing MPC: {k} differs card vs CPU")
+    gap = float((cartpole["card"][0] - cartpole["CPU"][0]).abs().max())
+    log(f"[14] cartpole MPC states card vs CPU within {gap:.2e}")
+    if gap > MPC_CARD_ATOL:
+        raise AssertionError(f"cartpole MPC: states differ by {gap:.3e}")
+    if not torch.equal(cartpole["card"][1]["steps_per_episode"].cpu(),
+                       cartpole["CPU"][1]["steps_per_episode"]):
+        raise AssertionError("cartpole MPC: balance counts differ")
+    return by_path
+
+
+def phase_analytic(device):
+    """Two shipped controllers on the analytic references as the quad eval
+    CLI flies them, card vs CPU -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
+
+    total = {"quad_rollout_fwd": 0, "quad_rollout_bwd": 0}
+    for name in ANALYTIC_ASSETS:
+        path = os.path.join(ROOT, "assets", name)
+        for ref in ANALYTIC_REFS:
+            out = {}
+            for side, dev in (("card", device), ("CPU", torch.device("cpu"))):
+                net, cfg = quad_eval.load_quad_controller(path, device=dev)
+                init, window_fn, project_fn = quad_eval.analytic_setup(
+                    ref, cfg, ANALYTIC_N, dev, cfg["horizon"])
+                roll, launches, secs = counted(
+                    lambda: quad_eval.follow_analytic(
+                        net, quad_params(device=dev), window_fn, project_fn,
+                        init, max_steps=ANALYTIC_STEPS, dt=cfg["delta_t"]))
+                divs = roll["divergences"].cpu().numpy()
+                valid = roll["valid"].cpu().numpy()
+                err = float((divs * valid).sum() / max(valid.sum(), 1))
+                out[side] = (err, valid.sum(axis=1))
+                log(f"[14] {name} {ref} on the {side}: avg divergence "
+                    f"{err:.6f}, mean steps before divergence "
+                    f"{valid.sum(axis=1).mean():.1f}, in {secs:.2f} s; "
+                    f"launches {launches}")
+                if side == "card":
+                    check_launches(f"{name} {ref}", launches, 0)
+                    for kernel, count in launches.items():
+                        total[kernel] += count
+                if not math.isfinite(err):
+                    raise AssertionError(f"{name} {ref}: divergence {err}")
+            success = {side: steps == ANALYTIC_STEPS
+                       for side, (_, steps) in out.items()}
+            if not np.array_equal(success["card"], success["CPU"]):
+                raise AssertionError(f"{name} {ref}: success flips card vs "
+                                     f"CPU")
+            check_close(f"{name} {ref} divergence", out["card"][0],
+                        out["CPU"][0], rtol=ANALYTIC_RTOL)
+    return {"analytic": total}
+
+
+def phase_minjerk_training(device):
+    """One concurrent epoch of TrainQuad with minjerk_mix at the shipped
+    config -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+    from apg_trajectory_tracking_tpu_torch.training.train_quad import TrainQuad
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_config as load_run_config,
+    )
+
+    save_name = "chip_smoke_minjerk"
+    shutil.rmtree(os.path.join("trained_models", "quad", save_name),
+                  ignore_errors=True)
+    trainers = {}
+    for side, dev in (("card", device), ("CPU", torch.device("cpu"))):
+        trainers[side] = TrainQuad(
+            load_config("quad"), save_name=save_name,
+            data_dir=os.path.join(ROOT, "data", "traj_data"),
+            minjerk_mix=MINJERK_MIX, device=dev)
+    card, cpu = trainers["card"], trainers["CPU"]
+    n = card.buffers.num_sampled
+    refs = card.buffers.refs.cpu()
+    mixed = (refs[:n, :, 3:6] == 0).all(dim=2).all(dim=1)
+    gap = float((refs - cpu.buffers.refs).abs().max())
+    scale = float(cpu.buffers.refs.abs().max())
+    log(f"[14] minjerk_mix {MINJERK_MIX}: {int(mixed.sum())} of {n} sampled "
+        f"windows mixed; windows card vs CPU within {gap:.2e} (largest "
+        f"|value| {scale:.2f})")
+    if int(mixed.sum()) != int(MINJERK_MIX * n) or gap > MIX_RTOL * scale:
+        raise AssertionError("minjerk_mix: the mixed windows differ")
+    _, launches, secs = counted(lambda: card.fit(1, verbose=False))
+    loss = card.logger.results["loss"][-1]
+    saved = load_run_config(card.save_path)["minjerk_mix"]
+    log(f"[14] minjerk_mix: 1 epoch in {secs:.1f} s; train steps "
+        f"{card.steps_taken}; launches {launches}; loss {loss:.3f}; "
+        f"config.json minjerk_mix {saved}")
+    check_launches("minjerk_mix epoch", launches, card.steps_taken)
+    if not math.isfinite(loss) or saved != MINJERK_MIX:
+        raise AssertionError(f"minjerk_mix: loss {loss}, saved {saved}")
+    return {"minjerk_mix": launches}
+
+
+def phase_new_shapes(device, worst):
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+
+    params = quad_params({}, device)
+    for B in NEW_B:
+        for k in NEW_K:
+            inputs = rollout_inputs(B, 100 * B + k, device, k)
+            check_kernels(params, *inputs, worst,
+                          f"[14] default B={B} k={k}")
+
+
+def phase_comparison(device, worst):
+    """Phase 14, leg by leg with its time -> {path: launches}."""
+    by_path = {}
+    for leg, fn in (("quad MPC", lambda: phase_quad_mpc(device)),
+                    ("wing and cartpole MPC",
+                     lambda: phase_system_mpc(device)),
+                    ("analytic flights", lambda: phase_analytic(device)),
+                    ("minjerk_mix training",
+                     lambda: phase_minjerk_training(device)),
+                    ("kernels at the new shapes",
+                     lambda: phase_new_shapes(device, worst) or {})):
+        t = time.perf_counter()
+        by_path.update(fn())
+        log(f"[time] phase 14 {leg} {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -2224,6 +2557,10 @@ def main(argv=None):
     log(f"[time] phase 13 PETS {time.perf_counter() - t:.1f} s")
     log(f"[time] phase 13 in all {time.perf_counter() - t13:.1f} s")
     done(13)
+    t14 = time.perf_counter()
+    by_path.update(phase_comparison(device, worst))
+    log(f"[time] phase 14 in all {time.perf_counter() - t14:.1f} s")
+    done(14)
     kernels = []
     for name, rows in timings.items():
         kernels.append({

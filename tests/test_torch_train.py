@@ -259,9 +259,10 @@ def test_train_quad_refuses_what_is_not_ported(tiny_bank, monkeypatch):
     with pytest.raises(NotImplementedError, match="extras"):
         train_quad.TrainQuad({**cfg, "checkpoint_backend": "orbax"},
                              data_dir=tiny_bank, device="cpu")
-    with pytest.raises(NotImplementedError, match="extras"):
+    # minjerk_mix is ported: only a share outside [0, 1] is refused
+    with pytest.raises(ValueError, match="minjerk_mix"):
         train_quad.TrainQuad(cfg, data_dir=tiny_bank, device="cpu",
-                             minjerk_mix=0.5)
+                             minjerk_mix=1.5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_quad.TrainQuad(cfg, data_dir=tiny_bank)
