@@ -6,8 +6,18 @@ mask, not a break. ``net_apply(params, states) -> (n, horizon) actions``
 swaps in other controller families. A stateful controller (warm-started
 MPC, iLQR, CEM) passes ``carry0`` and a ``net_apply(params, states, carry)
 -> (actions, carry)`` that threads its state through the episode.
+
+Run the evaluation CLI with::
+
+    python -m apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval \
+        [-m MODEL|mpc|ilqr|cem] [-e EPOCH] [-a N] [--swingup] [--sweep] \
+        [--cpu]
 """
 
+import argparse
+import json
+
+import numpy as np
 import torch
 
 from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
@@ -188,3 +198,154 @@ def swingup_metrics(net_params, dyn_params, starts, nr_iters=10,
         "mean_final_angle": float(angle.mean()),
         "n": n,
     }
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the CLI
+# ---------------------------------------------------------------------------
+
+
+def load_cartpole_controller(model_path, epoch="", device="cuda"):
+    """A cartpole controller checkpoint -> (CartpoleNet, config)."""
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        load_config,
+        net_from_jax,
+    )
+
+    cfg = load_config(model_path)
+    net = net_from_jax(load_checkpoint(model_path, "model_cartpole" + epoch),
+                       device)
+    return net, cfg
+
+
+def _mpc_balance(args, device):
+    """-m mpc: the Adam MPC balancing from ``RandomState(42)`` starts near
+    upright, one episode after the other, at most 250 steps, ended when
+    |theta| > 0.21 or |x| > 2.4."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+        cartpole_step,
+    )
+
+    dt, horizon = 0.05, 10
+    ctrl = MPC(horizon=horizon, dt=dt, dynamics="cartpole", device=device)
+    dyn = cartpole_params({}, device)
+    rng = np.random.RandomState(42)
+    steps_stable, vels = [], []
+    for _ in range(args.eval):
+        ctrl.reset()
+        state = (rng.rand(4).astype(np.float32) - 0.5) * 0.2
+        ep_vels = []
+        for i in range(250):
+            u = ctrl.predict_actions(state)
+            with torch.no_grad():
+                state = cartpole_step(
+                    dyn, torch.as_tensor(state[None], device=device),
+                    torch.as_tensor(u[:1], device=device), dt,
+                )[0].cpu().numpy()
+            ep_vels.append(abs(float(state[1])))
+            if abs(state[2]) > 0.21 or abs(state[0]) > 2.4:
+                break
+        steps_stable.append(i + 1)
+        vels.append(np.mean(ep_vels))
+    print(json.dumps({
+        "mean_stable": float(np.mean(steps_stable)),
+        "std_stable": float(np.std(steps_stable)),
+        "mean_vel": float(np.mean(vels)),
+        "std_vel": float(np.std(vels)),
+    }))
+
+
+def main(argv=None):
+    """The cartpole eval CLI (``scripts/evaluate_cartpole.py``). Swing-up
+    starts come from ``torch.Generator(42)`` through ``reset_swingup``, the
+    JAX evaluator's distribution (its ``PRNGKey(42)`` stream cannot be
+    reproduced)."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        DEFAULT_CARTPOLE_CFG,
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
+        not_ported,
+        resolve_model_dir,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
+        param_sweep,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+
+    parser = argparse.ArgumentParser(
+        description="Evaluate a cartpole controller with the PyTorch port "
+                    "(on the card unless --cpu).")
+    parser.add_argument("-m", "--model", default="test",
+                        help="checkpoint dir, run name under "
+                             "trained_models/cartpole/, mpc, ilqr or cem")
+    parser.add_argument("-e", "--epoch", default="")
+    parser.add_argument("-a", "--eval", type=int, default=10)
+    parser.add_argument("--swingup", action="store_true")
+    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--live", nargs="?", type=int, const=-1,
+                        default=None, metavar="N",
+                        help="not ported (ROADMAP.md queue 1 item 6)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="evaluate on the CPU instead of the card")
+    args = parser.parse_args(argv)
+    if args.model in ("ilqr", "cem") and not args.swingup:
+        parser.error(f"-m {args.model} evaluates the swing-up protocol: add "
+                     "--swingup (balance MPC is -m mpc)")
+    if args.live is not None:
+        raise not_ported("--live")
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    sweep_keys = {k: v for k, v in DEFAULT_CARTPOLE_CFG.items()
+                  if k in ("masscart", "masspole", "length", "max_force_mag",
+                           "friction")}
+
+    if args.model == "mpc":
+        _mpc_balance(args, device)
+        return
+    if args.model in ("ilqr", "cem"):
+        # the two solver families that close swing-up: two-start warm iLQR
+        # and its derivative-free CEM counterpart
+        if args.model == "ilqr":
+            from apg_trajectory_tracking_tpu_torch.controllers.ilqr import (
+                make_cartpole_swingup_ilqr as make_solver,
+            )
+        else:
+            from apg_trajectory_tracking_tpu_torch.controllers.cem import (
+                make_cartpole_swingup_cem as make_solver,
+            )
+        apply_fn, init_carry = make_solver(cartpole_params({}, device))
+
+        def eval_with(modified_params):
+            return swingup_metrics(
+                None, cartpole_params(modified_params, device),
+                torch.Generator().manual_seed(42), nr_iters=args.eval,
+                net_apply=apply_fn, horizon=60, init_carry=init_carry,
+            )
+    else:
+        net, cfg = load_cartpole_controller(
+            resolve_model_dir(args.model, "cartpole"), args.epoch, device)
+        dt, horizon = cfg["delta_t"], cfg["horizon"]
+
+        def eval_with(modified_params):
+            dyn = cartpole_params(modified_params, device)
+            if args.swingup:
+                return swingup_metrics(
+                    net, dyn, torch.Generator().manual_seed(42),
+                    nr_iters=args.eval, dt=dt, horizon=horizon,
+                )
+            return balance_metrics(evaluate_balance(
+                net, dyn, nr_iters=args.eval, dt=dt, horizon=horizon))
+
+    if args.sweep:
+        print(json.dumps(param_sweep(eval_with, sweep_keys), indent=1,
+                         default=float))
+        return
+    print(json.dumps(eval_with({}), default=float))
+
+
+if __name__ == "__main__":
+    main()

@@ -322,7 +322,7 @@ def eval_kwargs_for(cfg, nr_test):
     return kwargs
 
 
-def _not_ported(flag):
+def not_ported(flag):
     return SystemExit(
         f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1, item "
         f"6: the plotting, live-view and external-simulator "
@@ -471,7 +471,7 @@ def main(argv=None):
                         ("--live", args.live),
                         ("--external_sim", args.external_sim)):
         if value is not None:
-            raise _not_ported(flag)
+            raise not_ported(flag)
 
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
         DEFAULT_QUAD_CFG,

@@ -8,8 +8,17 @@ time either event records a target distance and ends the episode. At train
 time a pass ends the episode, while a divergence records ``thresh_div``
 and resets the vehicle onto the line, flying at ``DES_SPEED`` toward the
 target.
+
+Run the evaluation CLI with::
+
+    python -m apg_trajectory_tracking_tpu_torch.evaluation.wing_eval \
+        [-m MODEL|mpc] [-e EPOCH] [-a N] [--sweep] [--mpc_horizon H] [--cpu]
 """
 
+import argparse
+import json
+
+import numpy as np
 import torch
 
 from apg_trajectory_tracking_tpu_torch.data.dataset import wing_prepare_data
@@ -191,10 +200,17 @@ def fly_to_point(
     }
 
 
+def draw_targets(generator, nr_test, x_dist=50.0, x_std=5.0):
+    """(nr_test, 3) waypoints at x = ``x_dist``, y and z drawn from
+    U(-x_std, x_std) by ``generator``, on the CPU."""
+    yz = (torch.rand((nr_test, 2), generator=generator) - 0.5) * 2 * x_std
+    return torch.cat([torch.full((nr_test, 1), x_dist), yz], dim=1)
+
+
 def run_eval(
     net,
     dyn_params,
-    generator,
+    targets,
     mean,
     std,
     nr_test=10,
@@ -211,15 +227,15 @@ def run_eval(
     net_carry=None,
     action_transform=torch.sigmoid,
 ):
-    """Fly ``nr_test`` episodes to targets at x = ``x_dist`` with y and z
-    drawn from U(-x_std, x_std) by ``generator``, on the net's device ->
-    (metrics, rollout dict, targets). ``mean_success`` is the mean over
-    episodes of each episode's mean target distance (lower is better)."""
+    """Fly episodes to ``targets`` on the net's device -> (metrics, rollout
+    dict, targets). ``targets`` is (n, 3) waypoints, or a
+    ``torch.Generator`` that :func:`draw_targets` draws ``nr_test`` of at
+    ``x_dist`` and ``x_std``. ``mean_success`` is the mean over episodes
+    of each episode's mean target distance (lower is better)."""
     device = next(net.parameters()).device
-    yz = (torch.rand((nr_test, 2), generator=generator) - 0.5) * 2 * x_std
-    targets = torch.cat(
-        [torch.full((nr_test, 1), x_dist), yz], dim=1
-    ).to(device=device, dtype=torch.float32)
+    if isinstance(targets, torch.Generator):
+        targets = draw_targets(targets, nr_test, x_dist, x_std)
+    targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
     roll = fly_to_point(
         net, dyn_params.to(device), targets,
         torch.as_tensor(mean, device=device),
@@ -239,3 +255,142 @@ def run_eval(
         "mean_success_ci": list(bootstrap_ci(per_ep)),
     }
     return metrics, roll, targets
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+
+def _mpc_main(args, device):
+    """-m mpc: the Adam MPC on the 6-DoF wing, one episode after the other
+    from level flight toward ``RandomState(42)`` targets, at most 1000
+    steps each; crossing the target's x records the target's distance to
+    the segment just flown."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
+
+    dt, horizon = 0.05, args.mpc_horizon
+    ctrl = MPC(horizon=horizon, dt=dt, dynamics="fixed_wing_3D",
+               n_iters=None if horizon <= 10 else 100, device=device)
+    dyn = wing_params({}, device)
+    rng = np.random.RandomState(42)
+    errors = []
+    for _ in range(args.eval):
+        ctrl.reset()
+        target = np.array(
+            [50.0, (rng.rand() - 0.5) * 10, (rng.rand() - 0.5) * 10],
+            dtype=np.float32,
+        )
+        state = np.zeros(12, dtype=np.float32)
+        state[3] = DES_SPEED  # level flight
+        for _ in range(1000):
+            u = ctrl.predict_actions(state, target)
+            prev = state[:3].copy()
+            with torch.no_grad():
+                state = wing_step(
+                    dyn, torch.as_tensor(state[None], device=device),
+                    torch.as_tensor(u[:1], device=device), dt,
+                )[0].cpu().numpy()
+            if state[0] > target[0]:
+                seg = state[:3] - prev
+                t = np.clip(
+                    np.dot(target - prev, seg) / (seg @ seg + 1e-9), 0, 1
+                )
+                errors.append(float(np.linalg.norm(prev + t * seg - target)))
+                break
+    if not errors:
+        print("no episode passed the target within 1000 steps")
+        print(json.dumps({"mean_success": None, "std_success": None,
+                          "n_completed": 0, "n_attempted": args.eval}))
+        return
+    print("Average error (target): %.2f (%.2f), %d/%d completed"
+          % (np.mean(errors), np.std(errors), len(errors), args.eval))
+    print(json.dumps({
+        "mean_success": float(np.mean(errors)),
+        "std_success": float(np.std(errors)),
+        "n_completed": len(errors),
+        "n_attempted": args.eval,
+    }))
+
+
+def main(argv=None):
+    """The wing eval CLI (``scripts/evaluate_wing.py``). The net's targets
+    come from ``torch.Generator(42)``: x = 50 m, y and z ~ U(-5, 5), the
+    JAX evaluator's distribution (its ``PRNGKey(42)`` stream cannot be
+    reproduced)."""
+    from apg_trajectory_tracking_tpu_torch.data.dataset import (
+        WING_MEAN,
+        WING_STD,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        DEFAULT_WING_CFG,
+        wing_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
+        not_ported,
+        resolve_model_dir,
+    )
+    from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
+        param_sweep,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+
+    parser = argparse.ArgumentParser(
+        description="Evaluate a fixed-wing controller with the PyTorch port "
+                    "(on the card unless --cpu).")
+    parser.add_argument("-m", "--model", default="test",
+                        help="checkpoint dir, run name under "
+                             "trained_models/wing/, or mpc")
+    parser.add_argument("-e", "--epoch", default="")
+    parser.add_argument("-a", "--eval", type=int, default=10)
+    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--mpc_horizon", type=int, default=10,
+                        help="planning horizon for -m mpc (10 = the "
+                             "reference's; 20 intercepts within ~0.0003 m)")
+    parser.add_argument("--live", nargs="?", type=int, const=-1,
+                        default=None, metavar="N",
+                        help="not ported (ROADMAP.md queue 1 item 6)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="evaluate on the CPU instead of the card")
+    args = parser.parse_args(argv)
+    if args.live is not None:
+        raise not_ported("--live")
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.model == "mpc":
+        _mpc_main(args, device)
+        return
+
+    net, cfg = load_wing_controller(resolve_model_dir(args.model, "wing"),
+                                    args.epoch, device)
+    dt, horizon = cfg["delta_t"], cfg["horizon"]
+    mean = np.asarray(cfg.get("mean", WING_MEAN), dtype=np.float32)
+    std = np.asarray(cfg.get("std", WING_STD), dtype=np.float32)
+
+    def eval_with(modified_params):
+        metrics, _, _ = run_eval(
+            net, wing_params(modified_params), torch.Generator().manual_seed(
+                42), mean, std, nr_test=args.eval,
+            thresh_div=cfg.get("thresh_div", 10.0), thresh_stable=3.0,
+            horizon=horizon, dt=dt, test_time=True,
+        )
+        return metrics
+
+    if args.sweep:
+        keys = {k: v for k, v in DEFAULT_WING_CFG.items()
+                if k in ("mass", "rho", "S", "c", "b", "I_xx", "I_yy",
+                         "I_zz", "CL0", "CD0", "Cm0")}
+        print(json.dumps(param_sweep(eval_with, keys), indent=1,
+                         default=float))
+        return
+    m = eval_with({})
+    print("Average error (target): %.2f (%.2f)"
+          % (m["mean_success"], m["std_success"]))
+    print(json.dumps(m, default=float))
+
+
+if __name__ == "__main__":
+    main()

@@ -119,10 +119,8 @@ class TrainCartpole:
             # config's learning rate
             self.net, self.optimizer, base_cfg = restore_train_state(
                 base_model, resume_name(base_model, "model_cartpole"),
-                self.device,
+                self.device, lr=lr,
             )
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
             self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
         self._train_step = build_cartpole_step(self.net, self.optimizer,
                                                self.dt, self.horizon)

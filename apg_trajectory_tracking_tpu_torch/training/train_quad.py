@@ -287,7 +287,7 @@ class TrainQuad:
             # run saved none) and curriculum scalars, this config's rate
             net, self.optimizer, base_cfg = restore_train_state(
                 base_model, resume_name(base_model, "model_quad"),
-                self.device,
+                self.device, lr=cfg["learning_rate_controller"],
             )
             if type(net) is not type(self.net) or [
                     p.shape for p in net.parameters()] != [
@@ -297,8 +297,6 @@ class TrainQuad:
                     f"fit the {self.mode} mode of this config"
                 )
             self.net = net
-            for group in self.optimizer.param_groups:
-                group["lr"] = cfg["learning_rate_controller"]
             self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
             if curriculum:
                 self.speed_factor = base_cfg.get("speed_factor",

@@ -139,10 +139,8 @@ class TrainWing:
             # run saved none) and thresholds, this config's rate
             self.net, self.optimizer, base_cfg = restore_train_state(
                 base_model, resume_name(base_model, "model_wing"),
-                self.device,
+                self.device, lr=cfg["learning_rate_controller"],
             )
-            for group in self.optimizer.param_groups:
-                group["lr"] = cfg["learning_rate_controller"]
             self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
             self.thresh_stable = base_cfg.get("thresh_stable",
                                               self.thresh_stable)

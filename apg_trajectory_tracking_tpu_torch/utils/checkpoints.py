@@ -101,13 +101,16 @@ def save_train_state(save_dir, name, net, optimizer, config=None):
     save_checkpoint(save_dir, f"{name}_opt", momentum_to_jax(net, optimizer))
 
 
-def restore_train_state(save_dir, name, device="cuda"):
+def restore_train_state(save_dir, name, device="cuda", lr=None):
     """-> (net, SGD optimizer with the saved momentum, config); the net is
-    the kind that the npz holds."""
+    the kind that the npz holds. The optimizer's rate is ``lr``, else the
+    config's ``learning_rate_controller`` (a distilled student's config
+    has none: its optimizer was Adam)."""
     cfg = load_config(save_dir)
     net = net_from_jax(load_checkpoint(save_dir, name), device)
-    optimizer = sgd_momentum(net.parameters(),
-                             cfg["learning_rate_controller"])
+    optimizer = sgd_momentum(
+        net.parameters(),
+        cfg["learning_rate_controller"] if lr is None else lr)
     if checkpoint_exists(save_dir, f"{name}_opt"):
         load_momentum(net, optimizer, load_checkpoint(save_dir, f"{name}_opt"))
     return net, optimizer, cfg

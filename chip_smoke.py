@@ -107,16 +107,36 @@ Phases, in order; any failure exits non-zero:
      one epoch of ``TrainQuad`` with ``minjerk_mix`` 0.5 at the shipped
      config (its mixed windows card vs CPU, one launch of each kernel per
      step, the mix saved in ``config.json``); both kernels against their
-     plain twins at the table's new shapes (B = 4 and 100, k = 14 and 20).
+     plain twins at the table's new shapes (B = 4 and 100, k = 14 and 20);
+  15. distillation (``training/distill.py``), each run with its launch
+     counts set to 0 just before it and read just after, and each stage
+     (labelling call, fit, teacher rollout, evaluation, DAgger flight)
+     timed with its launches: the feed-forward student at the CLI's widths
+     (8000 pairs, batch 256, hidden 64, h = 10, 50 iterations) on the
+     200/20 bank, cut to 100 steps and one DAgger round of 20 rollouts
+     (every labelling call exactly 50 launches of each kernel, nothing
+     else any), then one resumed round from its checkpoint with
+     ``--failure_focus --select stable``; the LSTM student (hidden 64, h =
+     20, 30 teacher rollouts at 20 iterations, 4 steps, one round; the
+     teacher exactly 251 x 20 launches of each kernel); the wing student
+     (6000 pairs, h = 20, 5 iterations, 200 steps, one round; no launch);
+     tiny quad and LSTM runs on card and CPU from the same initial nets
+     (round metrics within 1e-3 relative, saved weights within 1e-4; the
+     LSTM's own teacher card vs CPU over 6 steps, then both runs on the
+     CPU's teacher sequences); the wing, cartpole (balance and swing-up)
+     and epoch-sweep eval CLIs on the card against themselves with
+     ``--cpu`` (no launch), the sweep over a 2-epoch ``train_quad`` run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import functools
+import io
 import json
 import math
 import os
@@ -124,6 +144,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -277,6 +298,44 @@ ANALYTIC_RTOL = 1e-4
 MINJERK_MIX, MIX_RTOL = 0.5, 1e-5
 # the kernels at the comparison table's shapes
 NEW_B, NEW_K = (4, 100), (14, 20)
+# phase 15: the distillation CLI's widths on the 200/20 bank, cut in depth
+# (the CLI: 4000 steps, 3 DAgger rounds, 50 evaluation references, of
+# which the 200/20 bank's test split holds 20). The steps were cut from
+# 500 (quad) and 20 (LSTM) after a whole run took 486.4 s on one H100
+# 80GB HBM3 at 700 W (phase 15 97.9 s, 17.8 s of it the LSTM's 30 BPTT
+# steps at 0.57 s each)
+DISTILL_QUAD = ["--n_pairs", "8000", "--batch", "256", "--hidden", "64",
+                "--teacher_horizon", "10", "--mpc_iters", "50", "--speed",
+                "0.4"]
+DISTILL_QUAD_CUTS = ["--steps", "100", "--dagger_iters", "1",
+                     "--dagger_rollouts", "20", "--eval", "50"]
+# the LSTM student at the CLI's hidden 64 and h = 20 (the CLI: 100
+# iterations, 1500 steps, 4 rounds), the wing at its 6000 pairs and h = 20
+# (the CLI: 100 iterations, 4000 steps, 4 rounds)
+DISTILL_LSTM = ["--hidden", "64", "--teacher_horizon", "20", "--rollouts",
+                "30", "--seq_batch", "32", "--speed", "0.4"]
+DISTILL_LSTM_CUTS = ["--mpc_iters", "20", "--steps", "4", "--dagger_iters",
+                     "1", "--dagger_rollouts", "20", "--eval", "50"]
+DISTILL_WING = ["--n_pairs", "6000", "--batch", "256", "--teacher_horizon",
+                "20"]
+DISTILL_WING_CUTS = ["--mpc_iters", "5", "--steps", "200", "--dagger_iters",
+                     "1", "--dagger_rollouts", "20", "--eval", "20"]
+# the tiny runs card vs CPU, at the CPU tests' sizes and bounds
+# (tests/test_torch_distill.py, tests/test_torch_distill_lstm.py): round
+# metrics 1e-3 relative, saved weights 1e-4; the LSTM's own teacher card
+# vs CPU over TINY_TEACHER_STEPS steps within 1e-4 (the warm-started
+# teacher is chaotic under roundoff over 251 steps, so the tiny LSTM run
+# takes the CPU's teacher sequences on both sides)
+TINY_QUAD = ["--n_pairs", "32", "--steps", "20", "--batch", "16",
+             "--dagger_iters", "1", "--dagger_rollouts", "2", "--eval", "2",
+             "--mpc_iters", "3"]
+TINY_LSTM = ["--rollouts", "2", "--steps", "4", "--seq_batch", "2",
+             "--dagger_iters", "1", "--dagger_rollouts", "2", "--eval", "2",
+             "--mpc_iters", "3", "--hidden", "16", "--teacher_horizon", "10"]
+ROUND_RTOL, NPZ_ATOL, TEACHER_ATOL, TINY_TEACHER_STEPS = 1e-3, 1e-4, 1e-4, 6
+# the eval CLIs card vs CPU: counts equal, errors and velocities 1e-3
+# relative
+EVAL_CLI_RTOL = 1e-3
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -2432,6 +2491,459 @@ def phase_comparison(device, worst):
     return by_path
 
 
+class StageClock:
+    """Wraps functions: each call's seconds (synchronised on both ends),
+    its launches of each kernel and its positional arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def timed(self, label, fn):
+        from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            f0, b0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({
+                "stage": label(kw) if callable(label) else label,
+                "s": time.perf_counter() - t0,
+                "fwd": R.FORWARD_LAUNCHES - f0,
+                "bwd": R.BACKWARD_LAUNCHES - b0, "args": args})
+            return out
+
+        return run
+
+    def of(self, stage):
+        return [c for c in self.calls if c["stage"] == stage]
+
+    def summary(self):
+        """{stage: [calls, seconds, forward launches, backward launches]}"""
+        out = {}
+        for c in self.calls:
+            row = out.setdefault(c["stage"], [0, 0.0, 0, 0])
+            row[0] += 1
+            row[1] += c["s"]
+            row[2] += c["fwd"]
+            row[3] += c["bwd"]
+        return out
+
+
+@contextlib.contextmanager
+def instrumented(clock):
+    """Every stage of ``training/distill.py`` timed by ``clock``: the
+    labelling calls, the fits, the teacher rollout, the evaluations and the
+    DAgger flights (the two evaluators' test-time and train-time runs)."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import (
+        quad_eval,
+        wing_eval,
+    )
+    from apg_trajectory_tracking_tpu_torch.training import distill
+
+    def wing_flight(kw):
+        return "evaluate" if kw.get("test_time") else "DAgger flight"
+
+    patches = {
+        "label_quad": clock.timed("label", distill.label_quad),
+        "label_wing": clock.timed("label", distill.label_wing),
+        "label_sequences": clock.timed("label",
+                                       distill.label_sequences),
+        "teacher_rollout": clock.timed("teacher rollout",
+                                       distill.teacher_rollout),
+        "fit_steps": clock.timed("fit", distill.fit_steps),
+        "quad_eval": types.SimpleNamespace(
+            run_eval=clock.timed("evaluate", quad_eval.run_eval),
+            follow_trajectories=clock.timed("DAgger flight",
+                                            quad_eval.follow_trajectories),
+            resolve_model_dir=quad_eval.resolve_model_dir),
+        "wing_eval": types.SimpleNamespace(
+            run_eval=clock.timed(wing_flight, wing_eval.run_eval)),
+    }
+    saved = {name: getattr(distill, name) for name in patches}
+    for name, fn in patches.items():
+        setattr(distill, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(distill, name, fn)
+
+
+def captured(fn):
+    """Run ``fn``, its standard output logged line by line under [15] ->
+    (its result, the output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[15]   | {line}")
+    return out, text
+
+
+def round_metrics(text):
+    """{line head: metrics} of the printed rounds ("cloned", "dagger i
+    (...)", "teacher-forced", "distilled+APG")."""
+    rounds = {}
+    for line in text.splitlines():
+        head, sep, tail = line.partition(": {")
+        if sep:
+            rounds[head] = json.loads("{" + tail)
+    return rounds
+
+
+def log_stages(tag, clock):
+    for stage, (n, secs, fwd, bwd) in clock.summary().items():
+        log(f"[15] {tag}: {stage}: {n} calls, {secs:.2f} s; launches "
+            f"fwd {fwd} bwd {bwd}")
+
+
+def distill_leg(tag, run, clock=None):
+    """One distillation run with its launch counts set to 0 just before and
+    read just after -> (clock, output, launches, seconds)."""
+    clock = clock or StageClock()
+    with instrumented(clock):
+        (_, text), launches, secs = counted(lambda: captured(run))
+    log(f"[15] {tag}: {secs:.1f} s; launches {launches}")
+    log_stages(tag, clock)
+    return clock, text, launches, secs
+
+
+def check_labels(tag, clock, iters):
+    """Each labelling call launched ``iters`` of each kernel -> the
+    launches of all of them."""
+    labels = clock.of("label")
+    for c in labels:
+        if (c["fwd"], c["bwd"]) != (iters, iters):
+            raise AssertionError(f"{tag}: a labelling call launched "
+                                 f"{c['fwd']} / {c['bwd']}, expected {iters}")
+    if any(c["fwd"] or c["bwd"] for c in clock.calls
+           if c["stage"] not in ("label", "teacher rollout")):
+        raise AssertionError(f"{tag}: a stage other than the teacher's "
+                             f"launched a rollout kernel")
+    return sum(c["fwd"] for c in labels)
+
+
+def check_rounds(tag, text, keys):
+    rounds = round_metrics(text)
+    if [k.split(" (")[0] for k in rounds] != keys:
+        raise AssertionError(f"{tag}: printed rounds {list(rounds)}")
+    for head, m in rounds.items():
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: {head} {m}")
+    return rounds
+
+
+def phase_distill_quad(device):
+    """Phase 15 (a): the feed-forward student at the CLI's widths, then one
+    resumed round -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training import distill
+
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    name = "chip_smoke_distilled"
+    flags = [*DISTILL_QUAD, *DISTILL_QUAD_CUTS, "--data_dir", data_dir]
+    for cut in ("--steps 100 of 4000", "--dagger_iters 1 of 3",
+                "--eval 50 (the 200/20 bank's 20 test references)"):
+        log(f"[15] quad student cut: {cut}")
+    args = distill.parse_args(["quad", *flags, "-s", name])
+    clock, text, launches, _ = distill_leg(
+        "quad student", lambda: distill.distill_quad(args, device=device))
+    total = check_labels("quad student", clock, args.mpc_iters)
+    check_launches("quad student", launches, total)
+    rounds = check_rounds("quad student", text, ["cloned", "dagger 0"])
+    fits = clock.of("fit")
+    for c in clock.of("label"):
+        log(f"[15] quad labelling call: B = {c['args'][2].shape[0]}, "
+            f"{c['s'] * 1e3:.1f} ms, launches {c['fwd']} / {c['bwd']} "
+            f"(mpc_iters {args.mpc_iters})")
+    log(f"[15] quad fit: {fits[0]['s'] / args.steps * 1e3:.2f} ms per step "
+        f"at batch {args.batch}")
+    for head, m in rounds.items():
+        log(f"[15] quad {head}: err {m['err']} stable {m['stable']}")
+
+    resume = distill.parse_args([
+        "quad", *flags, "--dagger_iters", "1", "--base_model",
+        os.path.join("trained_models", "quad", name), "--failure_focus",
+        "--select", "stable", "-s", name + "_resumed"])
+    clock, text, r_launches, _ = distill_leg(
+        "quad resumed (failure focus, select stable)",
+        lambda: distill.distill_quad(resume, device=device))
+    total = check_labels("quad resumed", clock, resume.mpc_iters)
+    check_launches("quad resumed", r_launches, total)
+    if len(clock.of("fit")) != 1:
+        raise AssertionError("quad resumed: cloned again")
+    check_rounds("quad resumed", text, ["cloned", "dagger 0"])
+    return {"distill_quad": launches, "distill_quad_resumed": r_launches}
+
+
+def phase_distill_lstm(device):
+    """Phase 15 (b): the recurrent student -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training import distill
+
+    for cut in ("--mpc_iters 20 of 100", "--steps 4 of 1500",
+                "--dagger_iters 1 of 4",
+                "--eval 50 (the 200/20 bank's 20 test references)"):
+        log(f"[15] LSTM student cut: {cut}")
+    args = distill.parse_args([
+        "lstm", *DISTILL_LSTM, *DISTILL_LSTM_CUTS, "--data_dir",
+        os.path.join(ROOT, "data", "traj_data"), "-s",
+        "chip_smoke_distilled_lstm"])
+    clock, text, launches, _ = distill_leg(
+        "LSTM student", lambda: distill.distill_quad_lstm(args,
+                                                          device=device))
+    teacher = clock.of("teacher rollout")
+    want = distill.TEACHER_STEPS * args.mpc_iters
+    if [(c["fwd"], c["bwd"]) for c in teacher] != [(want, want)]:
+        raise AssertionError(f"LSTM teacher launched "
+                             f"{[(c['fwd'], c['bwd']) for c in teacher]}, "
+                             f"expected {want} of each")
+    labels = check_labels("LSTM student", clock, args.mpc_iters)
+    check_launches("LSTM student", launches, want + labels)
+    check_rounds("LSTM student", text, ["teacher-forced", "dagger 0"])
+    fits = clock.of("fit")
+    log(f"[15] LSTM teacher rollout: {teacher[0]['s']:.1f} s for "
+        f"{args.rollouts} rollouts x {distill.TEACHER_STEPS} steps at "
+        f"{args.mpc_iters} iterations, launches {want} of each kernel")
+    log(f"[15] LSTM fit: {fits[0]['s'] / args.steps:.3f} s per step at "
+        f"{args.seq_batch} sequences of {distill.TEACHER_STEPS} steps")
+    return {"distill_lstm": launches}
+
+
+def phase_distill_wing(device):
+    """Phase 15 (c): the wing student -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training import distill
+
+    for cut in ("--mpc_iters 5 of 100", "--steps 200 of 4000",
+                "--dagger_iters 1 of 4"):
+        log(f"[15] wing student cut: {cut}")
+    args = distill.parse_args(["wing", *DISTILL_WING, *DISTILL_WING_CUTS,
+                               "-s", "chip_smoke_distilled_wing"])
+    targets = distill.wing_cli_targets(args)
+    clock, text, launches, _ = distill_leg(
+        "wing student", lambda: distill.distill_wing(args, *targets,
+                                                     device=device))
+    check_launches("wing student", launches, 0)
+    check_rounds("wing student", text, ["cloned", "dagger 0"])
+    for c in clock.of("label"):
+        log(f"[15] wing labelling call: B = {c['args'][2].shape[0]}, "
+            f"{c['s']:.2f} s at {args.mpc_iters} iterations, h = "
+            f"{args.teacher_horizon}")
+    return {"distill_wing": launches}
+
+
+def compare_rounds(tag, card, cpu):
+    """The printed round metrics card vs CPU -> worst relative gap."""
+    a, b = round_metrics(card), round_metrics(cpu)
+    if list(a) != list(b):
+        raise AssertionError(f"{tag}: rounds {list(a)} vs {list(b)}")
+    worst = 0.0
+    for head, m in a.items():
+        for key, value in m.items():
+            gap = abs(value - b[head][key]) / max(abs(b[head][key]), 1e-12)
+            worst = max(worst, gap)
+            if gap > ROUND_RTOL:
+                raise AssertionError(f"{tag}: {head} {key} {value} vs "
+                                     f"{b[head][key]}")
+    return worst
+
+
+def compare_saved(tag, path_card, path_cpu, name):
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        load_config,
+    )
+
+    a, b = load_checkpoint(path_card, name), load_checkpoint(path_cpu, name)
+    if sorted(a) != sorted(b) or load_config(path_card) != load_config(
+            path_cpu):
+        raise AssertionError(f"{tag}: saved keys or config differ")
+    gap = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    if gap > NPZ_ATOL:
+        raise AssertionError(f"{tag}: saved weights differ by {gap:.3e}")
+    return gap
+
+
+def phase_distill_card_vs_cpu(device):
+    """Phase 15 (d): tiny quad and LSTM runs on card and CPU from the same
+    initial nets and seed."""
+    from apg_trajectory_tracking_tpu_torch.controllers.mpc import (
+        _SPECS,
+        _make_solver,
+    )
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+        quad_params,
+        quad_step,
+    )
+    from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+    from apg_trajectory_tracking_tpu_torch.models.rnn import LSTMNet
+    from apg_trajectory_tracking_tpu_torch.training import distill
+
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    cpu = torch.device("cpu")
+    out = {}
+    for side, dev in (("card", device), ("CPU", cpu)):
+        args = distill.parse_args(["quad", *TINY_QUAD, "--data_dir",
+                                   data_dir, "-s", f"chip_smoke_tiny_{side}"])
+        net = ControlNet(15, 10, 9, 40, generator=torch.Generator(
+        ).manual_seed(0))
+        _, out[side], launches, _ = distill_leg(
+            f"tiny quad on the {side}",
+            lambda: distill.distill_quad(args, net=net, device=dev))
+    rounds_gap = compare_rounds("tiny quad", out["card"], out["CPU"])
+    npz_gap = compare_saved(
+        "tiny quad", *(os.path.join("trained_models", "quad",
+                                    f"chip_smoke_tiny_{side}")
+                       for side in ("card", "CPU")), "model_quad")
+    log(f"[15] tiny quad card vs CPU: rounds within {rounds_gap:.2e} "
+        f"relative, saved weights within {npz_gap:.2e}")
+
+    seqs = {}
+    for side, dev in (("card", device), ("CPU", cpu)):
+        solve = _make_solver(quad_step, _SPECS["flightmare"].to(dev), 10,
+                             DT, 3, 0.1)
+        refs = torch.as_tensor(test_references(2)[0], device=dev)
+        seqs[side] = [x.cpu() for x in distill.teacher_rollout(
+            solve, quad_params(device=dev), refs, 10,
+            steps=TINY_TEACHER_STEPS)]
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        (seqs["card"][0], seqs["card"][2]), (seqs["CPU"][0], seqs["CPU"][2])))
+    log(f"[15] LSTM teacher card vs CPU over {TINY_TEACHER_STEPS} steps: "
+        f"states and actions within {gap:.2e}")
+    if gap > TEACHER_ATOL:
+        raise AssertionError(f"LSTM teacher differs by {gap:.3e}")
+
+    real_teacher = distill.teacher_rollout
+    cpu_teacher = []
+
+    def keep(*args, **kw):
+        cpu_teacher.append(real_teacher(*args, **kw))
+        return cpu_teacher[-1]
+
+    def replay(solve, dyn, references, *args, **kw):
+        return tuple(x.to(references.device) for x in cpu_teacher[0])
+
+    for side, dev, teacher in (("CPU", cpu, keep), ("card", device, replay)):
+        args = distill.parse_args(["lstm", *TINY_LSTM, "--data_dir",
+                                   data_dir, "-s",
+                                   f"chip_smoke_tiny_lstm_{side}"])
+        net = LSTMNet(15, 10, 9, 4, hidden=16,
+                      generator=torch.Generator().manual_seed(0))
+        distill.teacher_rollout = teacher
+        try:
+            _, out[side], _, _ = distill_leg(
+                f"tiny LSTM on the {side}",
+                lambda: distill.distill_quad_lstm(args, net=net,
+                                                  device=dev))
+        finally:
+            distill.teacher_rollout = real_teacher
+    rounds_gap = compare_rounds("tiny LSTM", out["card"], out["CPU"])
+    npz_gap = compare_saved(
+        "tiny LSTM", *(os.path.join("trained_models", "quad",
+                                    f"chip_smoke_tiny_lstm_{side}")
+                       for side in ("card", "CPU")), "model_quad")
+    log(f"[15] tiny LSTM card vs CPU (the CPU's teacher sequences): rounds "
+        f"within {rounds_gap:.2e} relative, saved weights within "
+        f"{npz_gap:.2e}")
+
+
+def eval_cli(tag, main, argv):
+    """One eval CLI on the card and with --cpu -> the last JSON line of
+    each; the card's run launches no rollout kernel."""
+    outs = {}
+    for side, extra in (("card", []), ("CPU", ["--cpu"])):
+        (_, text), launches, secs = counted(
+            lambda: captured(lambda: main(argv + extra)))
+        log(f"[15] {tag} on the {side}: {secs:.1f} s; launches {launches}")
+        if side == "card":
+            check_launches(tag, launches, 0)
+            card_launches = launches
+        outs[side] = text
+    return outs, card_launches
+
+
+def check_eval_row(tag, card, cpu, exact, close):
+    worst = 0.0
+    for key in exact:
+        if card[key] != cpu[key]:
+            raise AssertionError(f"{tag}: {key} {card[key]} vs {cpu[key]}")
+    for key in close:
+        gap = abs(card[key] - cpu[key]) / max(abs(cpu[key]), 1e-12)
+        worst = max(worst, gap)
+        if gap > EVAL_CLI_RTOL:
+            raise AssertionError(f"{tag}: {key} {card[key]} vs {cpu[key]}")
+    log(f"[15] {tag} card vs CPU: {', '.join(exact)} equal; "
+        f"{', '.join(close)} within {worst:.2e} relative")
+
+
+def phase_eval_clis(device):
+    """Phase 15 (e): the wing, cartpole and epoch-sweep CLIs on the card,
+    each against itself with --cpu -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import (
+        cartpole_eval,
+        epochs,
+        wing_eval,
+    )
+    from apg_trajectory_tracking_tpu_torch.training import train_quad
+
+    def last(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    by_path = {}
+    outs, by_path["wing_eval_cli"] = eval_cli(
+        "wing eval CLI", wing_eval.main, ["-m", "assets/wing_trained", "-a",
+                                          "3"])
+    check_eval_row("wing eval CLI", last(outs["card"]), last(outs["CPU"]),
+                   ["n"], ["mean_success", "mean_steps_alive"])
+    for name, extra, exact, close in (
+            ("cartpole_balance_trained", [], ["mean_stable", "n"],
+             ["mean_vel"]),
+            ("cartpole_swingup_trained", ["--swingup"],
+             ["success_rate", "n"], ["mean_vel"])):
+        tag = f"cartpole eval CLI {name}"
+        outs, by_path[f"cartpole_eval_cli{extra and '_swingup' or ''}"] = (
+            eval_cli(tag, cartpole_eval.main,
+                     ["-m", f"assets/{name}", "-a", "3", *extra]))
+        check_eval_row(tag, last(outs["card"]), last(outs["CPU"]), exact,
+                       close)
+
+    run = os.path.join("trained_models", "quad", "chip_smoke_epochs")
+    shutil.rmtree(run, ignore_errors=True)
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    captured(lambda: train_quad.main([
+        "-s", "chip_smoke_epochs", "--epochs", "2", "--data_dir", data_dir]))
+    outs, by_path["epochs_cli"] = eval_cli(
+        "epoch sweep CLI", epochs.main, ["-m", run, "-a", "10",
+                                         "--data_dir", data_dir])
+    rows = {side: [json.loads(line) for line in text.splitlines()
+                   if line.startswith("[")] for side, text in outs.items()}
+    if not rows["card"] or [r[0] for r in rows["card"]] != [
+            r[0] for r in rows["CPU"]]:
+        raise AssertionError(f"epoch sweep rows {rows}")
+    for card, cpu in zip(rows["card"], rows["CPU"]):
+        check_eval_row(f"epoch sweep CLI epoch {card[0]}",
+                       dict(zip(("epoch", "div", "std", "stable"), card)),
+                       dict(zip(("epoch", "div", "std", "stable"), cpu)),
+                       ["epoch", "stable"], ["div"])
+    return by_path
+
+
+def phase_distillation(device):
+    """Phase 15, leg by leg with its time -> {path: launches}."""
+    by_path = {}
+    for leg, fn in (("quad student", lambda: phase_distill_quad(device)),
+                    ("LSTM student", lambda: phase_distill_lstm(device)),
+                    ("wing student", lambda: phase_distill_wing(device)),
+                    ("card vs CPU",
+                     lambda: phase_distill_card_vs_cpu(device) or {}),
+                    ("eval CLIs", lambda: phase_eval_clis(device))):
+        t = time.perf_counter()
+        by_path.update(fn())
+        log(f"[time] phase 15 {leg} {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -2561,6 +3073,10 @@ def main(argv=None):
     by_path.update(phase_comparison(device, worst))
     log(f"[time] phase 14 in all {time.perf_counter() - t14:.1f} s")
     done(14)
+    t15 = time.perf_counter()
+    by_path.update(phase_distillation(device))
+    log(f"[time] phase 15 in all {time.perf_counter() - t15:.1f} s")
+    done(15)
     kernels = []
     for name, rows in timings.items():
         kernels.append({
