@@ -677,8 +677,8 @@ def eval_pets_wing_waypoints(agent, dyn_params, targets, thresh_div=10.0,
 
     device = agent.device
     dyn = dyn_params.to(device)
-    targets = torch.as_tensor(np.asarray(targets), dtype=torch.float32,
-                              device=device)
+    # a tensor on any device, or an array
+    targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
     n = targets.shape[0]
     state = torch.zeros((n, 12), device=device)
     state[:, 3] = DES_SPEED

@@ -145,6 +145,21 @@ def quad_step(params: QuadParams, state, action, dt):
     )
 
 
+class ActionMapStep:
+    """:func:`quad_step` behind an elementwise action map:
+    ``step(params, state, action, dt) = quad_step(params, state,
+    action_map(action), dt)``. ``action_map`` maps (..., 4) actions to
+    (..., 4) actions row by row (an action-space ablation, for instance), so
+    a k-step unroll of this step is :func:`quad_rollout` of the mapped
+    (B, k, 4) actions, which ``TrainQuad`` runs on the rollout kernels."""
+
+    def __init__(self, action_map):
+        self.action_map = action_map
+
+    def __call__(self, params, state, action, dt):
+        return quad_step(params, state, self.action_map(action), dt)
+
+
 def quad_step_fast(params: QuadParams, state, action, dt):
     """:func:`quad_step` with the constant chains folded (J and mass cancel,
     dt folds into the rate gain, gravity and drag pre-sum). Same model up

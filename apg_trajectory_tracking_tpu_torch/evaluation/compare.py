@@ -477,10 +477,11 @@ def eval_apg(model_dir, references, thresh_div, device):
 
 
 def eval_mpc(solver, references, dt, horizon, thresh_div, device,
-             n_iters=None):
+             n_iters=None, max_steps=251):
     """The Flightmare MPC (``solver`` adam or ilqr) on the references ->
     metrics. Every row gets the same protocol span, ref_len = T - 10,
-    whatever the solver's horizon."""
+    whatever the solver's horizon; ``max_steps`` below the protocol's 251
+    cuts the closed loop short."""
     from apg_trajectory_tracking_tpu_torch.controllers.mpc import MPC
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 
@@ -491,9 +492,9 @@ def eval_mpc(solver, references, dt, horizon, thresh_div, device,
         mpc._solve, quad_params(device=device),
         torch.as_tensor(references, device=device), ref_len,
         thresh_div=thresh_div, thresh_stable=1.0, dyn_step=quad_step,
-        horizon=horizon, dt=dt,
+        horizon=horizon, max_steps=max_steps, dt=dt,
     )
-    return tracking_metrics(roll, thresh_div, ref_len)
+    return tracking_metrics(roll, thresh_div, ref_len, max_steps)
 
 
 def eval_ppo(ppo_dir, references, dt, horizon, thresh_div, speed, device,
@@ -626,9 +627,10 @@ def quad_table(args, device):
     return rows, n
 
 
-def cartpole_table(args, device):
+def cartpole_table(args, device, starts=None):
     """APG vs MPC vs PPO vs PETS on the balance protocol from shared
-    near-upright starts -> (rows, n)."""
+    near-upright starts -> (rows, n). ``starts`` (n, 4) replaces the draw
+    of ``reset_upright`` from ``torch.Generator().manual_seed(7)``."""
     from apg_trajectory_tracking_tpu_torch.baselines.pets import (
         cartpole_reward,
         eval_pets_balance,
@@ -661,8 +663,11 @@ def cartpole_table(args, device):
     )
 
     dyn = cartpole_params(device=device)
-    n = args.cartpole_eval
-    starts = reset_upright(torch.Generator().manual_seed(7), n, device)
+    if starts is None:
+        starts = reset_upright(torch.Generator().manual_seed(7),
+                               args.cartpole_eval, device)
+    starts = torch.as_tensor(starts, dtype=torch.float32, device=device)
+    n = starts.shape[0]
     rows = {}
 
     for model_dir in ("assets/cartpole_trained",
@@ -716,9 +721,11 @@ def cartpole_table(args, device):
     return rows, n
 
 
-def wing_table(args, device):
+def wing_table(args, device, targets=None):
     """Fixed-wing waypoints: APG vs MPC (h = 10, h = 20) vs PPO vs PETS on
-    shared targets through the same fly-to-point protocol -> (rows, n)."""
+    shared targets through the same fly-to-point protocol -> (rows, n).
+    ``targets`` (n, 3) replaces the draw from
+    ``torch.Generator().manual_seed(42)``."""
     from apg_trajectory_tracking_tpu_torch.baselines import rl_envs
     from apg_trajectory_tracking_tpu_torch.baselines.pets import (
         eval_pets_wing_waypoints,
@@ -748,12 +755,15 @@ def wing_table(args, device):
         save_checkpoint,
     )
 
-    n = args.wing_eval
-    # the wing evaluator's distribution: x = 50 m, y and z ~ U(-5, 5)
-    yz = (torch.rand((n, 2), generator=torch.Generator().manual_seed(42))
-          - 0.5) * 10.0
-    targets = torch.cat([torch.full((n, 1), 50.0), yz], dim=1).to(
-        device=device, dtype=torch.float32)
+    if targets is None:
+        # the wing evaluator's distribution: x = 50 m, y and z ~ U(-5, 5)
+        yz = (torch.rand((args.wing_eval, 2),
+                         generator=torch.Generator().manual_seed(42))
+              - 0.5) * 10.0
+        targets = torch.cat([torch.full((args.wing_eval, 1), 50.0), yz],
+                            dim=1)
+    targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
+    n = targets.shape[0]
     thresh_div, thresh_stable, max_steps, dt = 10.0, 3.0, 1000, 0.05
     dyn = wing_params({}, device)
     mean = torch.as_tensor(WING_MEAN, device=device)

@@ -66,14 +66,16 @@ class DynOptState:
 
 
 class MaskedDynamicsOptimizer:
-    """Global-norm clip, then Adam per label (see the module docstring).
+    """Global-norm clip (none with ``clip_norm=None``), then Adam per
+    label (see the module docstring).
 
     ``step(ld, grads, state) -> (ld, state)`` is functional: it returns a
     new model and state and writes nothing in place."""
 
-    def __init__(self, labels, lr, base_lr=None):
+    def __init__(self, labels, lr, base_lr=None, clip_norm=CLIP_NORM):
         self.labels = labels
         self.lrs = {"train": lr, "base": lr if base_lr is None else base_lr}
+        self.clip_norm = clip_norm
 
     def init(self, ld):
         moments = [None if label == "freeze" else torch.zeros_like(t)
@@ -81,7 +83,8 @@ class MaskedDynamicsOptimizer:
         return DynOptState(0, moments, list(moments))
 
     def step(self, ld, grads, state):
-        clipped = clip_by_global_norm(grads, CLIP_NORM)
+        clipped = (grads if self.clip_norm is None
+                   else clip_by_global_norm(grads, self.clip_norm))
         count = state.count + 1
         leaves, mus, nus = [], [], []
         for label, (_, t), g, mu, nu in zip(

@@ -12,7 +12,9 @@ k dynamics steps, each one a :func:`quad_rollout` at k = 1. Around them,
 curricula, closed-loop evaluation, self-play insertion, periodic
 resampling and best-checkpoint selection. With ``minjerk_mix`` a share of
 the sampled windows is replaced by min-jerk windows toward each window's
-own end point, the shape the analytic references show the net.
+own end point, the shape the analytic references show the net. A custom
+``dyn_step`` (:func:`dyn_step_unroll` says which route it takes) is both
+the training unroll's step and the in-training evaluator's plant.
 
 Run it with::
 
@@ -37,7 +39,11 @@ from apg_trajectory_tracking_tpu_torch.data.dataset import (
     quad_state_features,
     replace_sampled,
 )
-from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+    ActionMapStep,
+    quad_params,
+    quad_step,
+)
 from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
     full_state_training_data,
 )
@@ -74,6 +80,34 @@ from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 from apg_trajectory_tracking_tpu_torch.utils.logging import ResultsLogger
 
 IN_STATE_SIZE = 15  # quad feature vector (data/dataset.py)
+
+
+def dyn_step_unroll(dyn_step):
+    """The k-step unroll ``unroll(dyn_params, states (B, 12), actions (B,
+    k, 4), dt) -> (B, k, 12)`` of a quad step, by route:
+
+      * :func:`quad_step` -> None: the default :func:`quad_rollout` (the
+        rollout kernels on the card, the plain twin on the CPU);
+      * an :class:`ActionMapStep` -> :func:`quad_rollout` of the mapped
+        actions, a fresh (16-byte aligned) tensor, so the kernels still run
+        one forward and one backward launch per unroll and autograd
+        carries the gradient through the map;
+      * any other callable -> an eager loop of k calls (no kernel).
+    """
+    if dyn_step is quad_step:
+        return None
+    if isinstance(dyn_step, ActionMapStep):
+        def unroll(dyn_params, states, actions, dt):
+            return quad_rollout(dyn_params, states,
+                                dyn_step.action_map(actions), dt)
+    else:
+        def unroll(dyn_params, states, actions, dt):
+            out, state = [], states
+            for t in range(actions.shape[1]):
+                state = dyn_step(dyn_params, state, actions[:, t], dt)
+                out.append(state)
+            return torch.stack(out, dim=1)
+    return unroll
 
 
 def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
@@ -115,11 +149,12 @@ def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
 
 
 def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
-                   lstm_hidden=8):
+                   lstm_hidden=8, unroll=None):
     """Loss of one autoregressive or LSTM batch: at inner step k the net
     sees the window ``refs2h[:, k:k+horizon]`` re-centred on the current
-    position, emits one action, and one dynamics step follows. An LSTM
-    starts from a zero carry.
+    position, emits one action, and one dynamics step follows, by default
+    a :func:`quad_rollout` at k = 1 (``unroll``: see
+    :func:`dyn_step_unroll`). An LSTM starts from a zero carry.
 
     Args:
         states: (B, 12) raw states; refs2h: (B, 2 * horizon, 9) windows.
@@ -147,7 +182,8 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
         action = torch.sigmoid(logits)
         # one step through the rollout: a fresh (B, 1, 4) action and the
         # (B, 12) row block of the last output, both 16-byte aligned
-        state = quad_rollout(dyn_params, state, action[:, None], dt)[:, 0]
+        state = (unroll or quad_rollout)(dyn_params, state, action[:, None],
+                                         dt)[:, 0]
         inter.append(state)
         actions.append(action)
     return quad_mpc_loss(torch.stack(inter, dim=1), rel_refs[:, :horizon],
@@ -155,14 +191,14 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
 
 
 def build_recurrent_step(net, optimizer, dt, horizon, lstm=False,
-                         lstm_hidden=8):
+                         lstm_hidden=8, unroll=None):
     """-> ``step(dyn_params, states, refs2h) -> loss``: one SGD step of
     ``optimizer`` on ``net`` in the autoregressive or LSTM mode."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = recurrent_loss(net, dyn_params, states, refs, dt, horizon,
-                              lstm, lstm_hidden)
+                              lstm, lstm_hidden, unroll)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -197,7 +233,14 @@ def _not_ported(what, item):
 
 
 class TrainQuad:
-    """Host-side orchestration of quad APG training."""
+    """Host-side orchestration of quad APG training.
+
+    ``dyn_step`` (default :func:`quad_step`, on the rollout kernels) is the
+    step of the training unroll and of the in-training evaluation, which
+    feeds the self-play ring and the checkpoint choice: a custom step, an
+    action-space ablation for instance, is what the run is evaluated on.
+    :func:`dyn_step_unroll` says which steps train on the kernels.
+    """
 
     def __init__(
         self,
@@ -212,6 +255,7 @@ class TrainQuad:
         base_model=None,
         minjerk_mix=0.0,
         device="cuda",
+        dyn_step=quad_step,
     ):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("quad"))
@@ -301,16 +345,19 @@ class TrainQuad:
             if curriculum:
                 self.speed_factor = base_cfg.get("speed_factor",
                                                  self.speed_factor)
+        self.dyn_step = dyn_step
+        self.unroll = dyn_step_unroll(dyn_step)
         if self.mode == "concurrent":
             self._train_step = build_concurrent_step(
                 self.net, self.optimizer, self.dt, self.horizon,
-                self.action_dim,
+                self.action_dim, unroll=self.unroll,
             )
         else:
             self._train_step = build_recurrent_step(
                 self.net, self.optimizer, self.dt, self.horizon,
                 lstm=self.mode == "LSTM",
                 lstm_hidden=getattr(self, "lstm_hidden", 8),
+                unroll=self.unroll,
             )
         self.steps_taken = 0
 
@@ -366,7 +413,7 @@ class TrainQuad:
             self.net, self.eval_dyn, refs, ref_len,
             thresh_div=self.thresh_div, thresh_stable=self.thresh_stable,
             horizon=self.horizon, dt=self.dt, test_time=test_time,
-            **recurrent,
+            dyn_step=self.dyn_step, **recurrent,
         )
         if not test_time:
             self._self_play_insert(roll)

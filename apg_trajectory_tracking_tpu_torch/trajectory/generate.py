@@ -11,8 +11,16 @@ JAX package's, so either package reads a bank the other wrote.
 
 Trajectory file layout (10 columns at dt=0.01):
     [pos(3), attitude quaternion wxyz(4), vel(3)]
+
+Generate a bank from the command line (the flags of the JAX package's
+``scripts/generate_trajectories.py``; numpy only, no card)::
+
+    python -m apg_trajectory_tracking_tpu_torch.trajectory.generate \
+        [--out data/traj_data] [--n_train 200] [--n_test 20] \
+        [--duration 10.0] [--seed 0]
 """
 
+import argparse
 import json
 import os
 
@@ -248,3 +256,23 @@ def ensure_trajectory_bank(base_dir="data/traj_data", n_train=200, n_test=20):
     if not os.path.exists(os.path.join(base_dir, "config.json")):
         generate_trajectory_bank(base_dir, n_train=n_train, n_test=n_test)
     return base_dir
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Generate the random-trajectory bank.")
+    parser.add_argument("--out", default="data/traj_data")
+    parser.add_argument("--n_train", type=int, default=200)
+    parser.add_argument("--n_test", type=int, default=20)
+    parser.add_argument("--duration", type=float, default=10.0)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    generate_trajectory_bank(
+        args.out, n_train=args.n_train, n_test=args.n_test,
+        duration=args.duration, seed=args.seed,
+    )
+    print(f"wrote {args.n_train}+{args.n_test} trajectories to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

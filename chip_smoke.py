@@ -26,7 +26,7 @@ Phases, in order; any failure exits non-zero:
      main path: one launch of each kernel per step) and 1 epoch each in
      the autoregressive and LSTM modes (horizon launches of each kernel
      per step, at k = 1), and ``TrainWing`` from
-     ``configs/wing_config.json`` with 1000 of its 2000 self-play rows for
+     ``configs/wing_config.json`` with 500 of its 2000 self-play rows for
      1 epoch (no rollout kernel); each
      with a finite loss and a checkpoint that reloads bit-equal;
   7. timings: the concurrent, autoregressive, LSTM and wing train steps
@@ -125,7 +125,25 @@ Phases, in order; any failure exits non-zero:
      LSTM's own teacher card vs CPU over 6 steps, then both runs on the
      CPU's teacher sequences); the wing, cartpole (balance and swing-up)
      and epoch-sweep eval CLIs on the card against themselves with
-     ``--cpu`` (no launch), the sweep over a 2-epoch ``train_quad`` run.
+     ``--cpu`` (no launch), the sweep over a 2-epoch ``train_quad`` run;
+  16. the published-results pipeline (``evaluation/tables.py`` and the
+     analysis modules), each path with its launch counts set to 0 just
+     before it and read just after: the tables' wide, wall (no MPC row),
+     speed and analytic sections, each for a few of its models, and the
+     swing-up APG rows at the ``--quick`` sizes on the card and on the
+     CPU, the quad protocols on the 200/20 bank, the robustness sweep for
+     one model at factors 1.0 and 1.9 (rows within 1e-3 relative, counts
+     equal, no launch); the wall's ``MPC
+     (adam, h=20)`` row at 100 iterations for 3 control steps (exactly 300
+     launches of each kernel); 5 concurrent steps of the rate-cap ablation
+     at scale 2 (one launch of each kernel per step) and its widened unroll
+     on the kernels against the twin, forward and gradient; one cell of
+     the quad adaptation protocol (``training/adapt_protocol.py``, 1 fit
+     epoch and 1 controller epoch: 10 launches of each kernel per
+     controller step, none elsewhere) writing its JSON; and ``python -m
+     ...evaluation.tables --quick --sections wing --skip_mpc`` into a
+     temporary directory on the card, the repo's README.md and docs/
+     hashed before and after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -212,10 +230,10 @@ CEM_PLAN_ATOL = 1e-3
 # states differ by up to 4.8e-4 in u and 1.8e-7 relative in cost
 ILQR_HOVER_ATOL, ILQR_HOVER_COST_RTOL = 2e-3, 1e-4
 
-# phase 6's wing path at half the config's 2000 self-play rows (125 steps
-# instead of 250, and half the ring-filling flights before epoch 0), to
-# keep the whole run near 300 s
-PHASE6_WING_CFG = {"self_play": 1000}
+# phase 6's wing path at a quarter of the config's 2000 self-play rows (62
+# steps instead of 250, and a quarter of the ring-filling flights before
+# epoch 0), cut from half to make room for phase 16 within about 450 s
+PHASE6_WING_CFG = {"self_play": 500}
 # phase 12: scripts/adapt_quad.py's settings and its translational-drag
 # cell, 2 fit epochs then 1 controller epoch; the wing and cartpole
 # adaptations at the sizes of the JAX package's adaptation tests
@@ -336,6 +354,44 @@ ROUND_RTOL, NPZ_ATOL, TEACHER_ATOL, TINY_TEACHER_STEPS = 1e-3, 1e-4, 1e-4, 6
 # the eval CLIs card vs CPU: counts equal, errors and velocities 1e-3
 # relative
 EVAL_CLI_RTOL = 1e-3
+# phase 16: the tables' sections at their --quick sizes (wide 4, wall 3,
+# speeds 2, robustness 2, swing-up 3 references or starts), the quad
+# protocols on the 200/20 bank; card vs CPU within the CPU tests' row bar
+# (tests/test_torch_tables.py): counts equal, errors and velocities 1e-3
+# relative plus 1e-6. The card flies a 251-step closed loop in about 0.5
+# s, so each section flies a few of its models (the feed-forward, LSTM
+# and wide-window kinds among them; the analytic section a model that
+# phase 14 does not fly), and the robustness sweep one model's 6
+# parameters at factors 1.0 and 1.9 (12 of its 60 cells: the whole sweep
+# took 42.8 s on the card)
+TABLES_ROW_RTOL, TABLES_ROW_ATOL = 1e-3, 1e-6
+TABLES_ROBUSTNESS_FACTORS = (1.0, 1.9)
+TABLES_QUICK = {"wide_eval": 4, "wall_eval": 3, "speed_eval": 2,
+                "robustness_eval": 2, "swingup_eval": 3}
+TABLES_MODELS = {
+    "WIDE_MODELS": ["assets/quad_mpc_distilled_stable_ff",
+                    "assets/quad_mpc_distilled_lstm_h14",
+                    "assets/quad_mpc_distilled_stable",
+                    "assets/reference_pretrained"],
+    "WALL_MODELS": ["assets/quad_mpc_distilled_s05_ff",
+                    "assets/quad_mpc_distilled_s05_h14"],
+    "SPEED_MODELS": ["assets/quad_trained_9k"],
+    "ROBUSTNESS_MODELS": ["assets/quad_trained_9k"],
+    "ANALYTIC_MODELS": ["assets/quad_mpc_distilled_h14"],
+}
+# the wall row's h = 20 Adam MPC at its 100 iterations, cut to a few control
+# steps (its 251-step protocol is minutes on the card)
+WALL_MPC_STEPS = 3
+# the rate-cap ablation's widened step (scale 2) in concurrent training at
+# the quad config's batch 8, speed 0.5, no curriculum: RATE_CAP_ROWS / 8
+# steps; the widened unroll on the kernels against the twin at B = 1024
+RATE_CAP_SCALE = 2.0
+RATE_CAP_ROWS = 40
+RATE_CAP_B = 1024
+# the quad adaptation protocol: one cell (translational drag x1.9) at its
+# 512 + 256 rows, cut to 1 fit epoch and 1 controller epoch, 2 references
+ADAPT_PROTOCOL_ARGS = ["--eval", "2", "--cells", "trans", "--epochs", "2",
+                       "--dyn_epochs", "0"]
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -2571,15 +2627,15 @@ def instrumented(clock):
             setattr(distill, name, fn)
 
 
-def captured(fn):
-    """Run ``fn``, its standard output logged line by line under [15] ->
-    (its result, the output)."""
+def captured(fn, phase=15):
+    """Run ``fn``, its standard output logged line by line under
+    [``phase``] -> (its result, the output)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = fn()
     text = buf.getvalue()
     for line in text.splitlines():
-        log(f"[15]   | {line}")
+        log(f"[{phase}]   | {line}")
     return out, text
 
 
@@ -2944,6 +3000,309 @@ def phase_distillation(device):
     return by_path
 
 
+def cpu_flag(device):
+    """A CLI's ``--cpu`` when ``device`` is the CPU (a dry run of a phase
+    off the card)."""
+    return ["--cpu"] if device.type == "cpu" else []
+
+
+def tables_args(**kw):
+    return types.SimpleNamespace(
+        **TABLES_QUICK, skip_mpc=True,
+        data_dir=os.path.join(ROOT, "data", "traj_data"),
+        wide_data_dir=os.path.join(ROOT, "data", "traj_data"), **kw)
+
+
+def quad_rows(section):
+    """[(tag, row)] of a wide, wall, speed or robustness section's
+    result."""
+    res = section["results"]
+    if "0.4" in res:  # the speed matrix
+        return [(f"{s} {m}", row) for s, per in res.items()
+                for m, row in per.items()]
+    first = next(iter(res.values()), {})
+    if "translational_drag" in first:  # model -> param -> factor
+        return [(f"{m} {p} x{f}", {"mean_divergence": row["err"],
+                                   "ratio_stable": row["stable"],
+                                   "n": row["n"]})
+                for m, per in res.items() for p, cells in per.items()
+                for f, row in cells.items()]
+    return list(res.items())
+
+
+def check_rows(tag, card, cpu, exact, close):
+    """Rows of one section card vs CPU: the same rows, ``exact`` keys
+    equal, ``close`` keys within TABLES_ROW_RTOL relative plus
+    TABLES_ROW_ATOL -> the worst relative gap of a value above
+    TABLES_ROW_ATOL."""
+    if [t for t, _ in card] != [t for t, _ in cpu]:
+        raise AssertionError(f"{tag}: rows {card} vs {cpu}")
+    worst = 0.0
+    for (name, g), (_, w) in zip(card, cpu):
+        for key in exact:
+            if g[key] != w[key]:
+                raise AssertionError(f"{tag} {name}: {key} {g[key]} vs "
+                                     f"{w[key]}")
+        for key in close:
+            diff = abs(g[key] - w[key])
+            if abs(w[key]) > TABLES_ROW_ATOL:
+                worst = max(worst, diff / abs(w[key]))
+            if diff > TABLES_ROW_RTOL * abs(w[key]) + TABLES_ROW_ATOL:
+                raise AssertionError(f"{tag} {name}: {key} {g[key]} vs "
+                                     f"{w[key]}")
+    return worst
+
+
+def phase_table_sections(device):
+    """The tables' sections card vs CPU -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import tables
+
+    cpu = torch.device("cpu")
+    saved = {name: getattr(tables, name) for name in TABLES_MODELS}
+    for name, models in TABLES_MODELS.items():
+        setattr(tables, name, models)
+    by_path = {}
+    try:
+        for name, fn in (
+                ("wide", tables.wide_section),
+                ("wall", tables.wall_section),
+                ("speeds", tables.speeds_section),
+                ("robustness", lambda a, d: tables.robustness_section(
+                    a, d, factors=TABLES_ROBUSTNESS_FACTORS)),
+                ("analytic", tables.analytic_section),
+                ("swingup", tables.swingup_section)):
+            out, secs = {}, {}
+            for side, dev in (("card", device), ("CPU", cpu)):
+                out[side], launches, secs[side] = counted(
+                    lambda: fn(tables_args(), dev))
+                if side == "card":
+                    check_launches(f"tables {name}", launches, 0)
+                    by_path[f"tables_{name}"] = launches
+            if name == "swingup":
+                rows = {side: list(o[0].items()) for side, o in out.items()}
+                worst = check_rows(name, rows["card"], rows["CPU"],
+                                   ("n", "success_rate"),
+                                   ("mean_vel", "mean_final_angle"))
+            elif name == "analytic":
+                rows = {side: [(f"{m} {r}", row)
+                               for m, per in o["results"].items()
+                               for r, row in per.items()]
+                        for side, o in out.items()}
+                worst = check_rows(name, rows["card"], rows["CPU"],
+                                   ("steps",), ("mean_divergence",))
+            else:
+                rows = {side: quad_rows(o) for side, o in out.items()}
+                worst = check_rows(name, rows["card"], rows["CPU"],
+                                   ("n", "ratio_stable"),
+                                   ("mean_divergence",))
+            log(f"[16] tables {name}: {len(rows['card'])} rows, card "
+                f"{secs['card']:.2f} s, CPU {secs['CPU']:.2f} s; card vs CPU "
+                f"within {worst:.2e} relative, counts equal; launches 0")
+    finally:
+        for name, models in saved.items():
+            setattr(tables, name, models)
+    return by_path
+
+
+def phase_wall_mpc(device):
+    """The wall's MPC (adam, h=20) row for WALL_MPC_STEPS control steps ->
+    {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import tables
+
+    refs, n = tables.wide_references(
+        TABLES_QUICK["wall_eval"], speed=0.5,
+        data_dir=os.path.join(ROOT, "data", "traj_data"))
+    row, launches, secs = counted(lambda: tables.wall_mpc_row(
+        refs, device, n_iters=100, max_steps=WALL_MPC_STEPS))
+    log(f"[16] wall MPC (adam, h=20), 100 iterations, {n} references: "
+        f"{WALL_MPC_STEPS} control steps in {secs:.2f} s, "
+        f"{secs / WALL_MPC_STEPS * 1e3:.1f} ms per control step; launches "
+        f"{launches}")
+    check_launches("wall MPC (adam, h=20)", launches, WALL_MPC_STEPS * 100)
+    check_finite("wall MPC", row, ("mean_divergence", "mean_success"))
+    return {"wall_mpc_adam_h20": launches}
+
+
+def phase_rate_cap(device):
+    """Concurrent steps of the rate-cap ablation and its widened unroll
+    card vs twin -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.training import rate_cap
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+    from apg_trajectory_tracking_tpu_torch.training.train_quad import (
+        TrainQuad,
+        dyn_step_unroll,
+    )
+
+    step = rate_cap.widened_step(RATE_CAP_SCALE)
+    unroll = dyn_step_unroll(step)
+    s, a, _ = rollout_inputs(RATE_CAP_B, 16, device)
+    out = {}
+    for side, dev in (("card", device), ("CPU", torch.device("cpu"))):
+        actions = a.detach().to(dev).clone().requires_grad_()
+        reset_launches()
+        y = unroll(quad_params(device=dev), s.to(dev), actions, DT)
+        (y ** 2).sum().backward()
+        out[side] = (y.detach().cpu(), actions.grad.cpu())
+        if side == "card":
+            # a comparison launch: in no path's count
+            check_launches("widened unroll", read_launches(), 1)
+    fwd_err = max_errs(out["card"][0], out["CPU"][0])[0]
+    scale = out["CPU"][1].abs().max().item()
+    bwd_err = (out["card"][1] - out["CPU"][1]).abs().max().item()
+    log(f"[16] rate cap: widened unroll (scale {RATE_CAP_SCALE}) at B = "
+        f"{RATE_CAP_B}, k = {HORIZON} on the kernels vs the twin: forward "
+        f"within {fwd_err:.2e}, action gradient within {bwd_err:.2e} (largest "
+        f"{scale:.2e})")
+    torch.testing.assert_close(out["card"][0], out["CPU"][0], rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(out["card"][1], out["CPU"][1], rtol=RTOL,
+                               atol=BWD_ATOL_REL * scale)
+
+    save_name = "chip_smoke_rate_cap"
+    shutil.rmtree(os.path.join("trained_models", "quad", save_name),
+                  ignore_errors=True)
+    trainer = TrainQuad(
+        load_config("quad", {"speed_factor": 0.5,
+                             "epoch_size": RATE_CAP_ROWS, "self_play": 0}),
+        save_name=save_name, curriculum=False, dyn_step=step,
+        data_dir=os.path.join(ROOT, "data", "traj_data"), device=device)
+    loss, step_launches, secs = counted(trainer.run_epoch)
+    log(f"[16] rate cap: {trainer.steps_taken} concurrent steps in "
+        f"{secs:.2f} s, loss {loss:.3f}; launches {step_launches}")
+    check_launches("rate-cap steps", step_launches, trainer.steps_taken)
+    if trainer.steps_taken != RATE_CAP_ROWS // TRAIN_B or not math.isfinite(
+            loss):
+        raise AssertionError(f"rate cap: {trainer.steps_taken} steps, loss "
+                             f"{loss}")
+    metrics, launches, secs = counted(lambda: trainer.evaluate(0))
+    log(f"[16] rate cap: in-training evaluation under the widened step in "
+        f"{secs:.2f} s; launches {launches}")
+    check_launches("rate-cap evaluation", launches, 0)
+    check_finite("rate-cap evaluation", metrics, ("mean_divergence",))
+    return {"rate_cap_steps": step_launches}
+
+
+def phase_adapt_protocol(device, tmp):
+    """One cell of the quad adaptation protocol -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.training import adapt_protocol
+    from apg_trajectory_tracking_tpu_torch.training.adapt import (
+        TrainQuadAdapt,
+    )
+
+    bank = os.path.join(ROOT, "data", "traj_data")
+    out_path = os.path.join(tmp, "robustness_adapt.json")
+    real = TrainQuadAdapt.run_controller_epoch_learnt
+    leg = {"calls": 0, "steps": 0, "quad_rollout_fwd": 0,
+           "quad_rollout_bwd": 0}
+
+    def counted_epoch(self, idx=None):
+        reset_launches()
+        steps0 = self.inner.steps_taken
+        loss = real(self, idx)
+        for key, n in read_launches().items():
+            leg[key] += n
+        leg["calls"] += 1
+        leg["steps"] += self.inner.steps_taken - steps0
+        return loss
+
+    TrainQuadAdapt.run_controller_epoch_learnt = counted_epoch
+    try:
+        (_, text), launches, secs = counted(lambda: captured(
+            lambda: adapt_protocol.main(
+                ["quad", *ADAPT_PROTOCOL_ARGS, "--data_dir", bank,
+                 "--train_data_dir", bank, "--out", out_path,
+                 *cpu_flag(device)]), phase=16))
+    finally:
+        TrainQuadAdapt.run_controller_epoch_learnt = real
+    with open(out_path) as f:
+        result = json.load(f)
+    cell = result["cells"]["translational_drag x1.9"]
+    log(f"[16] quad adaptation protocol, one cell: {secs:.1f} s; controller "
+        f"epoch {leg}; after {json.dumps(cell['after'])}; rate authority "
+        f"feasible {cell['rate_authority']['feasible']}")
+    per_step = HORIZON * leg["steps"]
+    if leg["calls"] != 1 or leg["steps"] == 0:
+        raise AssertionError(f"adaptation protocol: controller epoch {leg}")
+    check_launches("adaptation protocol controller epoch",
+                   {k: leg[k] for k in launches}, per_step)
+    # the fit epoch and the protocol's evaluations launch nothing
+    check_launches("adaptation protocol", launches, per_step)
+    for key in ("before", "after", "after_final_epoch"):
+        check_finite(f"adaptation protocol {key}", cell[key], ("err",))
+    if not cell["rate_authority"]["feasible"] or set(result) != {
+            "base_model", "protocol", "nominal", "cells"}:
+        raise AssertionError(f"adaptation protocol: {result}")
+    return {"adapt_protocol_controller_epoch": {
+        k: leg[k] for k in ("quad_rollout_fwd", "quad_rollout_bwd")}}
+
+
+def tree_digest(*paths):
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in paths:
+        files = [path] if os.path.isfile(path) else sorted(
+            os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs)
+        for f in files:
+            h.update(f.encode())
+            with open(f, "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
+
+
+def phase_tables_cli(device, tmp):
+    """The tables CLI's --quick wing section on the card -> {path:
+    launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import tables
+
+    published = [os.path.join(ROOT, "README.md"), os.path.join(ROOT, "docs")]
+    before = tree_digest(*published)
+    out_dir = os.path.join(tmp, "tables")
+    (_, text), launches, secs = counted(lambda: captured(lambda: tables.main(
+        ["--quick", "--sections", "wing", "--skip_mpc", "--out_dir",
+         out_dir, *cpu_flag(device)]), phase=16))
+    with open(os.path.join(out_dir, "all_results.json")) as f:
+        rows = json.load(f)["wing_waypoint"]["results"]
+    with open(os.path.join(out_dir, "tables_manifest.json")) as f:
+        manifest = json.load(f)
+    apg = rows["APG wing_trained"]
+    log(f"[16] tables CLI --quick --sections wing --skip_mpc on the card: "
+        f"{secs:.1f} s; rows {list(rows)}; APG {json.dumps(apg)}; launches "
+        f"{launches}")
+    check_launches("tables CLI wing", launches, 0)
+    lo, hi = apg["pass_rate_ci"]
+    wing = manifest["sections"]["wing"]
+    if (apg["n"] != 3 or not lo <= apg["pass_rate"] <= hi
+            or not wing["artifact"] or manifest["device"] != device.type):
+        raise AssertionError(f"tables CLI: {apg}, {manifest}")
+    if not os.path.isfile(os.path.join(out_dir, "WING_COMPARISON.md")):
+        raise AssertionError("tables CLI: WING_COMPARISON.md not written")
+    if tree_digest(*published) != before:
+        raise AssertionError("tables CLI: the repo's README.md or docs/ "
+                             "changed")
+    log("[16] the repo's README.md and docs/ hash the same before and after")
+    return {"tables_cli_wing": launches}
+
+
+def phase_published_results(device):
+    """Phase 16, leg by leg with its time -> {path: launches}."""
+    tmp = os.path.join(ROOT, "trained_models", "chip_smoke_tables")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    by_path = {}
+    for leg, fn in (("table sections", lambda: phase_table_sections(device)),
+                    ("wall MPC row", lambda: phase_wall_mpc(device)),
+                    ("rate cap", lambda: phase_rate_cap(device)),
+                    ("adaptation protocol",
+                     lambda: phase_adapt_protocol(device, tmp)),
+                    ("tables CLI", lambda: phase_tables_cli(device, tmp))):
+        t = time.perf_counter()
+        by_path.update(fn())
+        log(f"[time] phase 16 {leg} {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -3077,6 +3436,10 @@ def main(argv=None):
     by_path.update(phase_distillation(device))
     log(f"[time] phase 15 in all {time.perf_counter() - t15:.1f} s")
     done(15)
+    t16 = time.perf_counter()
+    by_path.update(phase_published_results(device))
+    log(f"[time] phase 16 in all {time.perf_counter() - t16:.1f} s")
+    done(16)
     kernels = []
     for name, rows in timings.items():
         kernels.append({
