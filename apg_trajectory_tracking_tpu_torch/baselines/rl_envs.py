@@ -45,6 +45,9 @@ from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
     is_upright,
     reset_upright,
 )
+from apg_trajectory_tracking_tpu_torch.models.image_cartpole import (
+    render_cartpole_image,
+)
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import project_to_line
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
@@ -58,7 +61,7 @@ class RLEnv(NamedTuple):
     reset: Callable
     step: Callable
     draw_resets: Callable
-    obs_dim: int
+    obs_dim: object  # an int, or the image cartpole's (C, H, W)
     act_dim: int
 
 
@@ -96,20 +99,31 @@ class CartpoleRLState:
 
 def make_cartpole_rl(dyn_params, dt=0.05, max_steps=250, image_obs=False,
                      device="cuda"):
-    """The cartpole env: obs = the flattened 3-step (state, action)
-    history. Reset draws: (..., 4) near-upright start states."""
-    if image_obs:
-        raise NotImplementedError(
-            "image observations need the image cartpole "
-            "(models/image_cartpole.py), which the port does not have yet"
-        )
+    """The cartpole env. ``image_obs=False``: obs = the flattened 3-step
+    (state, action) history, 15 wide. ``image_obs=True``: obs = a (3, 100,
+    120) image stack rendered from the last 3 states, each frame's cart
+    shifted by its displacement from the current cart position, (x_i -
+    x_now) / 2.4 * 60 px, so velocity shows in the frame differences.
+    Reset draws: (..., 4) near-upright start states."""
     device = resolve_device(device)
     dyn = dyn_params.to(device)
 
-    def _obs(s):
-        hist = torch.cat([s.state_buffer[:, :3], s.action_buffer[:, :3]],
-                         dim=2)
-        return hist.reshape(hist.shape[0], -1)
+    if image_obs:
+        obs_dim = (3, 100, 120)
+        x_threshold, half_w = 2.4, 60.0
+
+        def _obs(s):
+            frames = s.state_buffer[:, :3]
+            x_now = s.state_buffer[:, :1, 0]
+            offsets = (frames[..., 0] - x_now) / x_threshold * half_w
+            return render_cartpole_image(frames, x_offset_px=offsets)
+    else:
+        obs_dim = 15  # 3 x (state (4) + action (1)) history
+
+        def _obs(s):
+            hist = torch.cat([s.state_buffer[:, :3], s.action_buffer[:, :3]],
+                             dim=2)
+            return hist.reshape(hist.shape[0], -1)
 
     def draw_resets(generator, shape):
         n = int(torch.Size(shape).numel())
@@ -142,7 +156,7 @@ def make_cartpole_rl(dyn_params, dt=0.05, max_steps=250, image_obs=False,
         nxt = where_envs(done, fresh, nxt)
         return nxt, _obs(nxt), reward, done
 
-    return RLEnv(reset, step, draw_resets, 15, 1)
+    return RLEnv(reset, step, draw_resets, obs_dim, 1)
 
 
 # ---------------------------------------------------------------------------

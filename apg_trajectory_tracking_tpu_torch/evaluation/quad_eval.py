@@ -25,7 +25,12 @@ Run the evaluation CLI with::
         [-m MODEL|mpc] [-e EPOCH] [-r rand|poly|hover|straight|circle] \
         [-p eight|curve|flat_eight|sinus] [-a N] [--speed S] [--sweep] \
         [--data_dir D] [--mpc_dynamics M] [--solver adam|ilqr] \
-        [--mpc_horizon H] [--cpu]
+        [--mpc_horizon H] [--external_sim native|mock] [--cpu]
+
+``--external_sim`` flies the rand, poly or waypoint references through an
+external simulator (``envs/external_sim.py``): the C++ quad sim or the
+port's quad step behind the flightgym conventions, one net call per
+control step on the device.
 """
 
 import argparse
@@ -325,9 +330,74 @@ def eval_kwargs_for(cfg, nr_test):
 def not_ported(flag):
     return SystemExit(
         f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1, item "
-        f"6: the plotting, live-view and external-simulator "
-        f"infrastructure)"
+        f"6: the plotting and live-view infrastructure)"
     )
+
+
+def external_predict(net, cfg, horizon, device):
+    """The ``--external_sim`` controller -> (predict, reset_fn): ``predict
+    (state (12,), window (rows, 9))`` featurizes one step on ``device``,
+    runs the net once and returns the first action (4,) in [0, 1] as
+    numpy; ``reset_fn`` zeroes an LSTM's carry (None for a feed-forward
+    net), called at each trajectory start."""
+    net_window = cfg.get("net_window", horizon)
+    carry = {}
+
+    def prepared(state, window):
+        return quad_prepare_data(
+            torch.as_tensor(state[None], device=device),
+            torch.as_tensor(window[None], device=device))
+
+    def first_action(logits):
+        return torch.sigmoid(logits)[0].cpu().numpy().reshape(-1, 4)[0]
+
+    if cfg.get("train_mode") == "LSTM":
+        def reset_fn():
+            carry["c"] = init_lstm_state(1, hidden=cfg.get("hidden", 8),
+                                         device=device)
+
+        @torch.no_grad()
+        def predict(state, window):
+            in_s, _, in_r, _ = prepared(state, window)
+            carry["c"], logits = lstm_net_apply(net, carry["c"], in_s,
+                                                in_r[:, :net_window])
+            return first_action(logits)
+
+        reset_fn()
+        return predict, reset_fn
+
+    @torch.no_grad()
+    def predict(state, window):
+        in_s, _, in_r, _ = prepared(state, window)
+        return first_action(net(in_s, in_r[:, :net_window]))
+
+    return predict, None
+
+
+def _external_main(args, net, cfg, references, horizon, dt, device):
+    """``--external_sim native|mock``: the closed loop through an external
+    simulator backend, one net call per control step on ``device``."""
+    import functools
+
+    from apg_trajectory_tracking_tpu_torch.envs.external_sim import (
+        MockFlightgymBackend,
+        NativeQuadSimBackend,
+        evaluate_external,
+    )
+
+    backend = (NativeQuadSimBackend if args.external_sim == "native"
+               else functools.partial(MockFlightgymBackend, device=device))
+    predict, reset_fn = external_predict(net, cfg, horizon, device)
+    metrics = evaluate_external(
+        predict, backend, references, references.shape[1] - horizon,
+        thresh_div=1.0, thresh_stable=1.0, horizon=horizon, dt=dt,
+        window_len=cfg.get("ref_length", horizon), reset_fn=reset_fn,
+    )
+    print(f"[external sim: {args.external_sim}]")
+    print("Average tracking error: %.2f (%.2f)"
+          % (metrics["mean_divergence"], metrics["std_divergence"]))
+    print("Ratio of stable runs: %.2f" % metrics["ratio_stable"])
+    print(json.dumps(metrics))
 
 
 def _mpc_main(args, device):
@@ -462,14 +532,28 @@ def main(argv=None):
                         help="not ported (ROADMAP.md queue 1 item 6)")
     parser.add_argument("--external_sim", default=None,
                         choices=["native", "mock"],
-                        help="not ported (ROADMAP.md queue 1 item 6)")
+                        help="fly the closed loop through an external "
+                             "simulator: 'native' = the C++ sim "
+                             "(native/quad_sim.cc), 'mock' = the port's "
+                             "quad step on the device; rand/poly/waypoint "
+                             "refs only")
     parser.add_argument("--live", nargs="?", type=int, const=-1,
                         default=None, metavar="N",
                         help="not ported (ROADMAP.md queue 1 item 6)")
     args = parser.parse_args(argv)
+    if args.external_sim is not None:
+        if args.model == "mpc" or (args.points is None
+                                   and args.ref not in ("rand", "poly")):
+            raise SystemExit(
+                "--external_sim supports neural controllers on rand/poly/"
+                "waypoint references (the reference's Flightmare-eval "
+                "protocol); analytic refs and -m mpc run on the batched "
+                "evaluator")
+        if args.sweep or args.animate or args.live is not None:
+            raise SystemExit("--external_sim is a plain-eval path "
+                             "(no --sweep/--animate/--live)")
     for flag, value in (("--animate", args.animate),
-                        ("--live", args.live),
-                        ("--external_sim", args.external_sim)):
+                        ("--live", args.live)):
         if value is not None:
             raise not_ported(flag)
 
@@ -542,6 +626,10 @@ def main(argv=None):
                                 for i in idx])
                 out[:, :, 2] += 3.0
                 return out
+
+        if args.external_sim is not None:
+            _external_main(args, net, cfg, make_refs(), horizon, dt, device)
+            return
 
         def eval_with(modified_params):
             references = make_refs()

@@ -2,11 +2,12 @@
 generator, and the map between a net's parameters and the JAX package's
 npz keys (counterpart of the JAX package's ``models/common.py``).
 
-``nn.Linear`` and ``nn.Conv1d`` draw weight and bias from
+``nn.Linear``, ``nn.Conv1d`` and ``nn.Conv2d`` draw weight and bias from
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (Kaiming-uniform with a = sqrt(5)).
 These constructors draw the same distribution from ``generator`` so a run
 is reproducible without touching the global RNG. Conv1d keeps torch's NCL
-layout and (O, I, K) weights, as the JAX package does.
+layout and (O, I, K) weights, Conv2d NCHW and (O, I, H, W) weights, as the
+JAX package does.
 
 In the npz format a layer's weight and bias are the leaves ``"['fc1'][0]"``
 and ``"['fc1'][1]"``, a Linear weight stored (in, out); a bare tensor of
@@ -45,6 +46,16 @@ def linear(in_dim, out_dim, generator=None):
 def conv1d(in_channels, out_channels, kernel_size, generator=None):
     layer = nn.Conv1d(in_channels, out_channels, kernel_size)
     bound = 1.0 / math.sqrt(in_channels * kernel_size)
+    _uniform_(layer.weight, bound, generator)
+    _uniform_(layer.bias, bound, generator)
+    return layer
+
+
+def conv2d(in_channels, out_channels, kernel_size, generator=None, stride=1,
+           padding=0):
+    layer = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                      padding=padding)
+    bound = 1.0 / math.sqrt(in_channels * kernel_size * kernel_size)
     _uniform_(layer.weight, bound, generator)
     _uniform_(layer.bias, bound, generator)
     return layer

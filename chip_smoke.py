@@ -143,7 +143,27 @@ Phases, in order; any failure exits non-zero:
      controller step, none elsewhere) writing its JSON; and ``python -m
      ...evaluation.tables --quick --sections wing --skip_mpc`` into a
      temporary directory on the card, the repo's README.md and docs/
-     hashed before and after.
+     hashed before and after;
+  17. the image and sequence cartpole and the deployment path, each path
+     with its launch counts set to 0 just before it and read just after:
+     ``collect_image_rollouts`` at the trainer's 64 rollouts x 20 steps
+     (1,280 stacks of 5 x 50 x 60) card vs CPU on the same draws;
+     ``fit_image_dynamics`` for 2 of its 20 epochs at batch 64 and
+     ``fit_sequence_dynamics`` for 3 of its 30, card vs CPU from the same
+     data, net and batches, one more image-fit epoch timed on the warm
+     card; both one-step gaps; the image RL env (16 envs, reset and 5
+     steps) card vs CPU; the DQN net forward and backward at (64, 3, 100,
+     120) on the card and the CPU against a float64 reference (none of
+     these launches a rollout kernel); then the native runtime built with
+     g++, ``assets/quad_trained``, ``quad_lstm_trained``, ``wing_trained``
+     and ``cartpole_trained`` exported, each one's native decisions held
+     to the port's net on the card; ``evaluate_external`` with the C++
+     and the mock backend on 4 references of the 200/20 bank against
+     ``run_eval`` on the card (the native loop launches nothing, the mock
+     exactly one forward kernel per control step and no backward), the
+     mock's step against the plain twin, and the quad eval CLI with
+     ``--external_sim native`` and ``mock`` on the card against
+     ``--cpu``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -392,6 +412,40 @@ RATE_CAP_B = 1024
 # 512 + 256 rows, cut to 1 fit epoch and 1 controller epoch, 2 references
 ADAPT_PROTOCOL_ARGS = ["--eval", "2", "--cells", "trans", "--epochs", "2",
                        "--dyn_epochs", "0"]
+# phase 17: the image and sequence cartpole at the JAX trainers' defaults
+# (64 rollouts x 20 steps, batch 64), the fits cut to 2 of 20 and 3 of 30
+# epochs; the image env at 16 envs for 5 steps; the DQN net at batch 64.
+# Card vs CPU: the collections and the env's frames within 1e-5; a fit's
+# losses within 1e-2 relative and each leaf's gap within 10% (in norm) of
+# the distance the CPU's fit moved it: Adam turns float roundoff in a
+# near-zero gradient entry into a whole step of either sign (the CPU tests
+# measure up to 2e-4 and 1% against JAX after 8 steps; these fits take 40
+# and 60, and the card's image-fit leaves parted by 1.8% and 3.2% of their
+# movement in two runs of the same inputs); the one-step gaps of one net 1e-4 relative; the DQN's output
+# rtol 1e-4, atol 1e-4 of its largest entry, and each gradient no further
+# from a float64 CPU reference than twice the CPU float32's own distance
+# plus 1e-4 of its largest entry: relu masks flip where batch-normalized
+# values sit at 0, so float32 gradients part from exact by up to 8e-3 of
+# their largest entry
+IMAGE_N, IMAGE_T, IMAGE_B = 64, 20, 64
+IMAGE_EPOCHS, SEQUENCE_EPOCHS = 2, 3
+IMAGE_MISMATCH = {"length": 0.8}
+SEQUENCE_MISMATCH = {"wind": 0.5}
+IMAGE_ENV_N, IMAGE_ENV_STEPS = 16, 5
+DQN_B = 64
+IMAGE_TOL = 1e-5
+FIT_LOSS_RTOL, FIT_LEAF_REL = 1e-2, 1e-1
+GAP_RTOL = 1e-4
+DQN_TOL = 1e-4
+# deployment: the four shipped kinds exported; the native controller's
+# decisions against the port's nets on the card within 1e-5; the external
+# loops on 4 references of the 200/20 bank (up to 251 steps) against
+# run_eval on the card: counts equal, mean divergence within 1e-3
+DEPLOY_ASSETS = ("quad_trained", "quad_lstm_trained", "wing_trained",
+                 "cartpole_trained")
+NATIVE_ACT_ATOL = 1e-5
+EXTERNAL_REFS = 4
+EXTERNAL_DIV_ATOL = 1e-3
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -3303,6 +3357,499 @@ def phase_published_results(device):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the image and sequence cartpole, and the deployment path
+# ---------------------------------------------------------------------------
+
+
+def leaf_gaps(card, cpu, init):
+    """{leaf: |card - cpu| / |cpu - init|} in norm over {key: array}
+    dicts."""
+    return {k: float(np.linalg.norm(card[k] - cpu[k])
+                     / max(np.linalg.norm(cpu[k] - init[k]), 1e-30))
+            for k in cpu}
+
+
+def check_fit(tag, hist, leaves, init):
+    """A fit card vs CPU: losses within FIT_LOSS_RTOL, each leaf within
+    FIT_LEAF_REL of the distance the CPU's fit moved it."""
+    loss_gap = max(abs(c - w) / abs(w) for c, w in zip(hist["card"],
+                                                       hist["CPU"]))
+    gaps = leaf_gaps(leaves["card"], leaves["CPU"], init)
+    worst = max(gaps, key=gaps.get)
+    log(f"[17] {tag} card vs CPU: losses {hist['card']} vs {hist['CPU']} "
+        f"(within {loss_gap:.2e} relative); worst leaf {worst} within "
+        f"{gaps[worst]:.2e} of its movement")
+    if not all(math.isfinite(x) for x in hist["card"]) or (
+            loss_gap > FIT_LOSS_RTOL or gaps[worst] > FIT_LEAF_REL):
+        raise AssertionError(f"{tag}: card vs CPU {hist}, {gaps}")
+
+
+def check_gap(tag, card, cpu):
+    rel = max(abs(c - w) / abs(w) for c, w in zip(card, cpu))
+    log(f"[17] {tag}: one-step error model {card[0]:.5f}, analytic "
+        f"{card[1]:.5f} on the card; CPU {cpu[0]:.5f}, {cpu[1]:.5f} "
+        f"(within {rel:.2e} relative)")
+    if rel > GAP_RTOL:
+        raise AssertionError(f"{tag}: {card} vs {cpu}")
+
+
+def phase_image_cartpole(device):
+    """The image and sequence cartpole card vs CPU -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.models import image_cartpole as ic
+    from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
+    from apg_trajectory_tracking_tpu_torch.training import (
+        train_image_cartpole as tic,
+    )
+    from apg_trajectory_tracking_tpu_torch.training.common import (
+        shuffled_batches,
+    )
+    from apg_trajectory_tracking_tpu_torch.training import (
+        train_sequence_cartpole as tsc,
+    )
+
+    cpu = torch.device("cpu")
+    sides = (("card", device), ("CPU", cpu))
+    by_path = {}
+    g = torch.Generator().manual_seed(17)
+    s0, a = tic.draw_rollout_inputs(g, IMAGE_N, IMAGE_T)
+    mismatch = cartpole_params(IMAGE_MISMATCH)
+    data, secs = {}, {}
+    for side, dev in sides:
+        data[side], launches, secs[side] = counted(
+            lambda: tic.collect_image_rollouts(None, mismatch, states0=s0,
+                                               actions=a, device=dev))
+        if side == "card":
+            check_path_launches("image collection", launches, 0)
+            by_path["image_collect"] = launches
+    for got, want in zip(data["card"], data["CPU"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=IMAGE_TOL,
+                                   atol=IMAGE_TOL)
+    gap = max(max_errs(got.cpu(), want)[0]
+              for got, want in zip(data["card"], data["CPU"]))
+    log(f"[17] collect_image_rollouts n = {IMAGE_N}, t = {IMAGE_T}: stacks "
+        f"{tuple(data['card'][1].shape)}, card {secs['card']:.3f} s, CPU "
+        f"{secs['CPU']:.3f} s; card vs CPU within {gap:.2e}")
+
+    net0 = ic.ImageCartpoleDynamics(tic.IMG_W, tic.IMG_H, generator=g)
+    init = net_to_jax(net0)
+    n_rows = IMAGE_N * IMAGE_T
+    batches = [shuffled_batches(g, n_rows, IMAGE_B)
+               for _ in range(IMAGE_EPOCHS)]
+    hist, leaves = {}, {}
+    for side, dev in sides:
+        def fit(epochs=IMAGE_EPOCHS):
+            return tic.fit_image_dynamics(
+                None, mismatch, epochs=epochs, batch_size=IMAGE_B,
+                data=tuple(x.to(dev) for x in data["CPU"]),
+                net=ic.image_dynamics_from_jax(init, tic.IMG_W, tic.IMG_H,
+                                               device=dev),
+                batches=batches, device=dev)
+
+        (net, hist[side], _), launches, secs = counted(fit)
+        leaves[side] = net_to_jax(net)
+        log(f"[17] fit_image_dynamics on the {side}: {IMAGE_EPOCHS} epochs "
+            f"of {n_rows // IMAGE_B} steps at batch {IMAGE_B} in "
+            f"{secs:.2f} s; launches {launches}")
+        if side == "card":
+            check_path_launches("image fit", launches, 0)
+            by_path["image_fit"] = launches
+            _, _, epoch_s = counted(lambda: fit(1))
+            log(f"[17] one more image-fit epoch on the warm card: "
+                f"{epoch_s:.3f} s")
+    check_fit("image fit", hist, leaves, init)
+
+    gaps = {}
+    for side, dev in sides:
+        # the CPU's fitted net on both: the gap's own arithmetic
+        net = ic.image_dynamics_from_jax(leaves["CPU"], tic.IMG_W, tic.IMG_H,
+                                         device=dev)
+        gaps[side], launches, _ = counted(lambda: tic.image_dynamics_gap(
+            net, mismatch, torch.Generator().manual_seed(3)))
+        if side == "card":
+            check_path_launches("image gap", launches, 0)
+            by_path["image_gap"] = launches
+    check_gap("image_dynamics_gap", gaps["card"], gaps["CPU"])
+
+    seq_mismatch = cartpole_params(SEQUENCE_MISMATCH)
+    seq_data = tsc.collect_history_rollouts(None, seq_mismatch, states0=s0,
+                                            actions=a, device=cpu)
+    p0 = tsc.init_sequence_dynamics(g, buffer_length=tsc.BUF)
+    seq_init = {k: getattr(p0, k).numpy() for k in ("w1", "b1", "w2")}
+    seq_batches = [shuffled_batches(g, n_rows, IMAGE_B)
+                   for _ in range(SEQUENCE_EPOCHS)]
+    hist, leaves, params = {}, {}, {}
+    for side, dev in sides:
+        (params[side], hist[side]), launches, secs = counted(
+            lambda: tsc.fit_sequence_dynamics(
+                None, seq_mismatch, epochs=SEQUENCE_EPOCHS,
+                batch_size=IMAGE_B, data=tuple(x.to(dev) for x in seq_data),
+                params=p0.to(dev), batches=seq_batches, device=dev))
+        leaves[side] = {k: getattr(params[side], k).cpu().numpy()
+                        for k in seq_init}
+        log(f"[17] fit_sequence_dynamics on the {side}: {SEQUENCE_EPOCHS} "
+            f"epochs of {n_rows // IMAGE_B} steps, "
+            f"{secs / SEQUENCE_EPOCHS:.4f} s per epoch; launches {launches}")
+        if side == "card":
+            check_path_launches("sequence fit", launches, 0)
+            by_path["sequence_fit"] = launches
+    check_fit("sequence fit", hist, leaves, seq_init)
+    gaps = {side: tsc.sequence_dynamics_gap(
+        params["CPU"].to(dev), seq_mismatch, torch.Generator().manual_seed(4))
+        for side, dev in sides}
+    check_gap("sequence_dynamics_gap", gaps["card"], gaps["CPU"])
+
+    by_path["image_env"] = phase_image_env(device)
+    phase_image_dqn(device)
+    return by_path
+
+
+def phase_image_env(device):
+    """make_cartpole_rl(image_obs=True), reset and IMAGE_ENV_STEPS steps
+    card vs CPU on the same draws -> its launches."""
+    from apg_trajectory_tracking_tpu_torch.baselines import rl_envs
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    draws = [rl_envs.reset_upright(g, IMAGE_ENV_N)
+             for _ in range(IMAGE_ENV_STEPS + 1)]
+    actions = [torch.rand((IMAGE_ENV_N, 1), generator=g) * 2 - 1
+               for _ in range(IMAGE_ENV_STEPS)]
+    frames = {}
+    for side, dev in (("card", device), ("CPU", torch.device("cpu"))):
+        env = rl_envs.make_cartpole_rl(cartpole_params(), max_steps=3,
+                                       image_obs=True, device=dev)
+
+        def run():
+            s, obs = env.reset(draws[0])
+            out = [obs]
+            for act, d in zip(actions, draws[1:]):
+                s, obs, rew, _ = env.step(s, act.to(dev), d)
+                out += [obs, rew]
+            return [x.cpu() for x in out]
+
+        frames[side], launches, secs = counted(run)
+        log(f"[17] image env on the {side}: reset and {IMAGE_ENV_STEPS} steps "
+            f"of {IMAGE_ENV_N} envs, frames {tuple(frames[side][0].shape)}, "
+            f"{secs:.3f} s; launches {launches}")
+        if side == "card":
+            check_path_launches("image env", launches, 0)
+            card_launches = launches
+    for got, want in zip(frames["card"], frames["CPU"]):
+        torch.testing.assert_close(got, want, rtol=IMAGE_TOL, atol=IMAGE_TOL)
+    gap = max(max_errs(got, want)[0]
+              for got, want in zip(frames["card"], frames["CPU"]))
+    log(f"[17] image env card vs CPU: frames and rewards within {gap:.2e}")
+    return card_launches
+
+
+def phase_image_dqn(device):
+    """The DQN net's forward and backward at (DQN_B, 3, 100, 120) on the
+    card, the CPU and the CPU in float64, and its card time."""
+    from apg_trajectory_tracking_tpu_torch.models import image_cartpole as ic
+    from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
+
+    g = torch.Generator().manual_seed(6)
+    net0 = ic.ImageControllerNetDQN(ic.IMG_H, ic.IMG_W, out_size=2,
+                                    generator=g)
+    x = torch.rand((DQN_B, 3, ic.IMG_H, ic.IMG_W), generator=g)
+    cot = torch.randn((DQN_B, 2), generator=g)
+    cpu = torch.device("cpu")
+    out = {}
+    for side, dev, dtype in (("card", device, torch.float32),
+                             ("CPU", cpu, torch.float32),
+                             ("float64", cpu, torch.float64)):
+        net = ic.image_dqn_from_jax(net_to_jax(net0), ic.IMG_H, ic.IMG_W,
+                                    device=dev).to(dtype)
+        xd, cd = x.to(dev, dtype), cot.to(dev, dtype)
+
+        def fwd_bwd():
+            net.zero_grad()
+            y = net(xd)
+            (y * cd).sum().backward()
+            return y
+
+        y = fwd_bwd()
+        out[side] = (y.detach().cpu().double(),
+                     {k: v.astype(np.float64) for k, v in net_to_jax(
+                         net, lambda p: p.grad).items()})
+        if side == "card":
+            ms = time_cuda(fwd_bwd, runs=20)
+    torch.testing.assert_close(out["card"][0], out["CPU"][0], rtol=DQN_TOL,
+                               atol=DQN_TOL * out["CPU"][0].abs().max())
+    worst = {"card": 0.0, "CPU": 0.0}
+    for k, exact in out["float64"][1].items():
+        if k in ("['conv1'][1]", "['conv2'][1]", "['conv3'][1]"):
+            continue  # a bias before a batch-statistics norm: gradient 0
+        scale = np.abs(exact).max()
+        err = {side: np.abs(out[side][1][k] - exact).max() / scale
+               for side in worst}
+        for side in worst:
+            worst[side] = max(worst[side], err[side])
+        if err["card"] > 2 * err["CPU"] + DQN_TOL:
+            raise AssertionError(f"DQN gradient {k}: card {err['card']:.2e}"
+                                 f" vs CPU {err['CPU']:.2e} from float64")
+    log(f"[17] DQN net (B = {DQN_B}, 3 x 100 x 120) forward + backward: "
+        f"{ms:.3f} ms on the card; output card vs CPU within {DQN_TOL}; "
+        f"gradients from the float64 reference within {worst['card']:.2e} "
+        f"(card) and {worst['CPU']:.2e} (CPU float32) of their largest "
+        f"entry")
+
+
+def phase_deployment(device, tmp):
+    """Exports, the native controller, the external loops and the eval
+    CLI's --external_sim -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.envs import external_sim as xs
+    from apg_trajectory_tracking_tpu_torch.utils import export_controller
+    from apg_trajectory_tracking_tpu_torch.utils import native_runtime as nr
+
+    t = time.perf_counter()
+    libs = [nr.build_native(lib_name=name)
+            for name in ("libapgctrl.so", "libapgsim.so")]
+    log(f"[17] native runtime built with g++ in "
+        f"{time.perf_counter() - t:.1f} s: {libs}")
+    exported = {}
+    for asset in DEPLOY_ASSETS:
+        out = os.path.join(tmp, f"{asset}.apgc")
+        header = export_controller.export_control_net(
+            os.path.join(ROOT, "assets", asset), out)
+        exported[asset] = out
+        log(f"[17] exported assets/{asset}: {header['kind']} "
+            f"{header['system']}, {os.path.getsize(out)} bytes")
+    by_path = {"native_controller": phase_native_controller(device,
+                                                             exported)}
+    by_path.update(phase_external_loops(device, xs))
+    by_path.update(phase_external_cli(device, xs))
+    return by_path
+
+
+def phase_native_controller(device, exported):
+    """Each export's native decisions against the port's net on the card
+    on fixed states -> the launches of the native path (none)."""
+    from apg_trajectory_tracking_tpu_torch.data.dataset import (
+        WING_MEAN,
+        WING_STD,
+        quad_prepare_data,
+        wing_prepare_data,
+    )
+    from apg_trajectory_tracking_tpu_torch.models.rnn import init_lstm_state
+    from apg_trajectory_tracking_tpu_torch.utils import native_runtime as nr
+    from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        load_config,
+        net_from_jax,
+    )
+
+    rng = np.random.RandomState(7)
+    total = {"quad_rollout_fwd": 0, "quad_rollout_bwd": 0}
+    for asset, path in exported.items():
+        model = os.path.join(ROOT, "assets", asset)
+        cfg = load_config(model)
+        net = net_from_jax(load_checkpoint(
+            model, "model_" + cfg.get("system", "quad")), device)
+        nc = nr.NativeController(path)
+        states = (rng.randn(8, 12) * 0.3).astype(np.float32)
+        if cfg["system"] == "wing":
+            states[:, 3] += 11.5  # level flight
+
+        def both():
+            with torch.no_grad():
+                s = torch.tensor(states, device=device)
+                if nc.kind == "cartpole_net":
+                    return (net(s[:, :4]).cpu().numpy(),
+                            [nc.cartpole_predict(x[:4]) for x in states])
+                if cfg["system"] == "wing":
+                    targets = (rng.randn(8, 3) * 4 + [30, 0, 0]).astype(
+                        np.float32)
+                    normed, _, rel, _ = wing_prepare_data(
+                        torch.tensor(states, device=device),
+                        torch.tensor(targets, device=device),
+                        torch.tensor(cfg.get("mean") or WING_MEAN,
+                                     device=device),
+                        torch.tensor(cfg.get("std") or WING_STD,
+                                     device=device),
+                        dt=cfg["delta_t"], horizon=cfg["horizon"])
+                    return (torch.sigmoid(net(normed, rel)).cpu().numpy(),
+                            [nc.wing_predict(x, y)
+                             for x, y in zip(states, targets)])
+                refs = (rng.randn(8, nc.window, 9) * 0.3).astype(np.float32)
+                in_s, _, in_r, _ = quad_prepare_data(
+                    s, torch.tensor(refs, device=device))
+                if nc.kind != "lstm_net":
+                    return (torch.sigmoid(net(in_s, in_r)).cpu().numpy(),
+                            [nc.quad_predict(x, r)
+                             for x, r in zip(states, refs)])
+                carry, nat, want, got = init_lstm_state(
+                    1, net.hidden, device=device), nc.init_carry(), [], []
+                for b in range(len(states)):
+                    carry, logits = net(carry, in_s[b:b + 1], in_r[b:b + 1])
+                    want.append(torch.sigmoid(logits)[0].cpu().numpy())
+                    act, nat = nc.lstm_predict(states[b], refs[b], nat)
+                    got.append(act)
+                return np.stack(want), got
+
+        (want, got), launches, _ = counted(both)
+        gap = float(np.abs(np.stack(got) - want).max())
+        timing = ""
+        if nc.kind == "control_net" and cfg["system"] == "quad":
+            window = np.zeros((nc.window, 9), np.float32)
+            t = time.perf_counter()
+            for _ in range(1000):
+                nc.quad_predict(states[0], window)
+            timing = (f"; quad_predict {(time.perf_counter() - t) * 1e3:.1f} "
+                      f"us per call on the host")
+        log(f"[17] native {nc.kind} of assets/{asset} vs the port's net on "
+            f"the card, {len(states)} decisions: within {gap:.2e}{timing}; "
+            f"launches {launches}")
+        check_path_launches(f"native {asset}", launches, 0)
+        for k in total:
+            total[k] += launches[k]
+        if gap > NATIVE_ACT_ATOL:
+            raise AssertionError(f"native {asset}: {gap}")
+        nc.close()
+    return total
+
+
+def counting_adapter(xs):
+    """Wrap ExternalSimAdapter.step with a counter of control steps ->
+    (counter dict, restore function)."""
+    real = xs.ExternalSimAdapter.step
+    steps = {"n": 0}
+
+    def step(self, action01):
+        steps["n"] += 1
+        return real(self, action01)
+
+    xs.ExternalSimAdapter.step = step
+    return steps, lambda: setattr(xs.ExternalSimAdapter, "step", real)
+
+
+def phase_external_loops(device, xs):
+    """evaluate_external with the native and the mock backend on
+    EXTERNAL_REFS references, against run_eval on the card; the mock's
+    step against the plain twin -> {path: launches}."""
+    import functools
+
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    refs, ref_len = test_references(EXTERNAL_REFS)
+    net, cfg = quad_eval.load_quad_controller(
+        os.path.join(ROOT, "assets", "quad_trained"), device=device)
+    want, _ = run_eval_counted(quad_eval, net, refs, ref_len)
+    by_path = {}
+    for sim, factory in (
+            ("native", xs.NativeQuadSimBackend),
+            ("mock", functools.partial(xs.MockFlightgymBackend,
+                                       device=device))):
+        predict, _ = quad_eval.external_predict(net, cfg, HORIZON, device)
+        steps, restore = counting_adapter(xs)
+        try:
+            metrics, launches, secs = counted(lambda: xs.evaluate_external(
+                predict, factory, refs, ref_len))
+        finally:
+            restore()
+        gap = abs(metrics["mean_divergence"] - want["mean_divergence"])
+        log(f"[17] evaluate_external ({sim}) on {EXTERNAL_REFS} references: "
+            f"{steps['n']} control steps in {secs:.2f} s, "
+            f"{secs / steps['n'] * 1e3:.3f} ms per control step; "
+            f"mean_success {metrics['mean_success']} vs run_eval "
+            f"{want['mean_success']}, mean_divergence within {gap:.2e}; "
+            f"launches {launches}")
+        check_path_launches(f"external {sim}", launches,
+                            steps["n"] if sim == "mock" else 0)
+        by_path[f"external_{sim}"] = launches
+        if (metrics["mean_success"] != want["mean_success"]
+                or metrics["n"] != want["n"] or gap > EXTERNAL_DIV_ATOL):
+            raise AssertionError(f"external {sim}: {metrics} vs {want}")
+
+    # the mock's step (a comparison launch, in no path's count) vs the twin
+    params = quad_params(device=device)
+    s, a, _ = rollout_inputs(1, 18, device, k=1)
+    backend = xs.MockFlightgymBackend(init_state=s[0].cpu().numpy(),
+                                      device=device)
+    backend.step(xs.action_to_fm(a[0, 0].cpu().numpy()))
+    twin = R.quad_rollout_reference(params, s, a, DT)[0, 0].cpu().numpy()
+    err = float(np.abs(backend._state - twin).max())
+    log(f"[17] the mock's step on the kernel vs the plain twin: within "
+        f"{err:.2e}")
+    np.testing.assert_allclose(backend._state, twin, rtol=RTOL, atol=ATOL)
+    return by_path
+
+
+def run_eval_counted(quad_eval, net, refs, ref_len):
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+
+    (metrics, roll), launches, secs = counted(lambda: quad_eval.run_eval(
+        net, quad_params(), refs, ref_len, thresh_div=1.0, thresh_stable=1.0,
+        horizon=HORIZON, dt=DT, test_time=True))
+    log(f"[17] run_eval on the card on the same references: {secs:.2f} s, "
+        f"mean_success {metrics['mean_success']}, mean_divergence "
+        f"{metrics['mean_divergence']:.5f}; launches {launches}")
+    return metrics, roll
+
+
+def phase_external_cli(device, xs):
+    """The quad eval CLI with --external_sim native and mock on the card
+    and with --cpu -> {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
+
+    argv = ["-m", "assets/quad_trained", "-a", str(EXTERNAL_REFS),
+            "--data_dir", os.path.join(ROOT, "data", "traj_data")]
+    by_path = {}
+    for sim in ("native", "mock"):
+        out = {}
+        for side, extra in (("card", cpu_flag(device)), ("CPU", ["--cpu"])):
+            steps, restore = counting_adapter(xs)
+            try:
+                (_, text), launches, secs = counted(lambda: captured(
+                    lambda: quad_eval.main(argv + ["--external_sim", sim]
+                                           + extra), phase=17))
+            finally:
+                restore()
+            lines = text.strip().splitlines()
+            out[side] = json.loads(lines[-1])
+            log(f"[17] eval CLI --external_sim {sim} on the {side}: "
+                f"{secs:.1f} s, {steps['n']} control steps; launches "
+                f"{launches}")
+            if lines[0] != f"[external sim: {sim}]":
+                raise AssertionError(f"eval CLI {sim}: {lines}")
+            if side == "card":
+                check_path_launches(f"eval CLI {sim}", launches,
+                                    steps["n"] if sim == "mock" else 0)
+                by_path[f"eval_cli_external_{sim}"] = launches
+        card, cpu = out["card"], out["CPU"]
+        gap = abs(card["mean_divergence"] - cpu["mean_divergence"])
+        log(f"[17] eval CLI --external_sim {sim} card vs CPU: mean_success "
+            f"{card['mean_success']} vs {cpu['mean_success']}, "
+            f"mean_divergence within {gap:.2e}")
+        if (card["mean_success"] != cpu["mean_success"]
+                or card["n"] != cpu["n"] or gap > EXTERNAL_DIV_ATOL):
+            raise AssertionError(f"eval CLI {sim}: {card} vs {cpu}")
+    return by_path
+
+
+def phase_image_and_deployment(device):
+    """Phase 17, leg by leg with its time -> {path: launches}."""
+    tmp = os.path.join(ROOT, "trained_models", "chip_smoke_deploy")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    by_path = {}
+    for leg, fn in (("image and sequence cartpole",
+                     lambda: phase_image_cartpole(device)),
+                    ("deployment", lambda: phase_deployment(device, tmp))):
+        t = time.perf_counter()
+        by_path.update(fn())
+        log(f"[time] phase 17 {leg} {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -3440,6 +3987,10 @@ def main(argv=None):
     by_path.update(phase_published_results(device))
     log(f"[time] phase 16 in all {time.perf_counter() - t16:.1f} s")
     done(16)
+    t17 = time.perf_counter()
+    by_path.update(phase_image_and_deployment(device))
+    log(f"[time] phase 17 in all {time.perf_counter() - t17:.1f} s")
+    done(17)
     kernels = []
     for name, rows in timings.items():
         kernels.append({

@@ -461,10 +461,13 @@ def test_eval_cli_flies_the_mpc(tiny_bank, capsys, monkeypatch, dynamics):
     assert all(np.isfinite(_numbers(line)))
 
 
-@pytest.mark.parametrize("flag", [["--animate", "x.gif"], ["--live"],
-                                  ["--external_sim", "native"]])
-def test_eval_cli_refuses_the_unported_flags(flag):
-    with pytest.raises(SystemExit, match="item 6"):
+@pytest.mark.parametrize("flag,match", [
+    (["--animate", "x.gif"], "item 6"), (["--live"], "item 6"),
+    (["--external_sim", "native", "--sweep"], "plain-eval path")])
+def test_eval_cli_refuses_the_unported_flags(flag, match):
+    """``--animate`` and ``--live`` are not ported; ``--external_sim`` is,
+    and refuses a sweep as the JAX script does."""
+    with pytest.raises(SystemExit, match=match):
         quad_eval.main(["-m", os.path.join(ASSETS, "quad_trained"), "--cpu"]
                        + flag)
 

@@ -179,9 +179,21 @@ def test_quad_mario_reward_squares_the_sum():
 
 
 def test_image_observations_are_refused():
-    with pytest.raises(NotImplementedError, match="image cartpole"):
-        rl_envs.make_cartpole_rl(cartpole_params(), image_obs=True,
-                                 device=CPU)
+    """Image observations work (they were refused before the image
+    cartpole was ported): reset and a step give (n, 3, 100, 120) frames in
+    [0, 1], the newest frame's cart centered; the image env itself is held
+    to the JAX env in test_torch_image_cartpole.py."""
+    env = rl_envs.make_cartpole_rl(cartpole_params(), image_obs=True,
+                                   device=CPU)
+    assert env.obs_dim == (3, 100, 120)
+    draws = env.draw_resets(torch.Generator().manual_seed(0), (2,))
+    s, obs = env.reset(draws)
+    s, obs2, _, _ = env.step(s, torch.ones(2, 1), draws)
+    for o in (obs, obs2):
+        assert o.shape == (2, 3, 100, 120)
+        assert 0.0 <= float(o.min()) and float(o.max()) <= 1.0
+    # after a push the older frames sit off the newest one's position
+    assert not torch.equal(obs2[:, 0], obs2[:, 1])
 
 
 def test_quad_env_step_is_one_forward_rollout(monkeypatch):
