@@ -14,3 +14,13 @@ PyTorch loop under autograd.
 """
 
 __version__ = "0.1.0"
+
+from apg_trajectory_tracking_tpu_torch.dynamics import (  # noqa: F401,E402
+    cartpole_params,
+    cartpole_step,
+    quad_params,
+    quad_step,
+    quad_step_simple,
+    wing_params,
+    wing_step,
+)

@@ -283,6 +283,19 @@ def cartpole_reward(state, action, ctx=None):
     return torch.where(upright, 1.0 - torch.abs(state[..., 1]), 0.0)
 
 
+def make_quad_hover_reward(target=(0.0, 0.0, 3.0)):
+    """0.3 minus the distance to ``target`` while roll and pitch stay
+    within 1.5 rad, else -1."""
+
+    def reward(state, action, ctx=None):
+        tgt = torch.as_tensor(target, dtype=state.dtype, device=state.device)
+        pos_div = torch.linalg.norm(state[..., :3] - tgt, dim=-1)
+        stable = torch.all(torch.abs(state[..., 3:5]) < 1.5, dim=-1)
+        return torch.where(stable, 0.3 - pos_div, -1.0)
+
+    return reward
+
+
 def make_quad_tracking_reward(thresh_div=0.3, thresh_stable=1.5):
     """The mario shaping on raw states with the env's done conditions as a
     planning penalty. Unlike the env's reward it sums the SQUARED errors

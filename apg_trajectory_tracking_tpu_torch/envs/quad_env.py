@@ -1,14 +1,47 @@
-"""Trajectory-bank training-data sampler (counterpart of
-``full_state_training_data`` in the JAX package's ``envs/quad_env.py``).
-Plain numpy, run on the host once per resample."""
+"""Quadrotor resets and the trajectory-bank training-data sampler
+(counterpart of the JAX package's ``envs/quad_env.py``). The sampler is
+plain numpy, run on the host once per resample."""
 
 import numpy as np
+import torch
 
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     prepare_trajectory,
 )
 
 REF_SIZE = 9
+
+
+def quad_zero_reset(batch, position=(0.0, 0.0, 3.0), device="cpu"):
+    """(batch, 12) states at rest at ``position``: zero attitude and
+    velocities."""
+    state = torch.zeros((batch, 12), dtype=torch.float32, device=device)
+    state[:, :3] = torch.as_tensor(position, dtype=torch.float32)
+    return state
+
+
+def quad_random_reset(generator, batch, strength=0.8, draws=None,
+                      device="cpu"):
+    """(batch, 12) randomized resets: roll and pitch within 3 * strength
+    degrees, yaw in [-1.5, 1.5], position in [-1, 1]^3, velocity in [-3,
+    3], angular velocity in [-2, 2] * strength with the yaw rate halved.
+
+    ``draws``: the five U[0, 1) arrays (roll-pitch (batch, 2), yaw (batch,
+    1), position, velocity, angular velocity (batch, 3) each) scaled into
+    those ranges; None draws them from ``generator``."""
+    if draws is None:
+        draws = [torch.rand((batch, d), generator=generator)
+                 for d in (2, 1, 3, 3, 3)]
+    u_rp, u_yaw, u_pos, u_vel, u_av = (
+        torch.as_tensor(np.array(d, dtype=np.float32)) for d in draws)
+    mpr = 3.0 * strength * np.pi / 180.0
+    roll_pitch = u_rp * (2 * mpr) - mpr
+    yaw = u_yaw * 3.0 - 1.5
+    pos = u_pos * 2 - 1
+    vel = u_vel * 6.0 - 3.0
+    av = u_av * (4.0 * strength) - 2.0 * strength
+    av = torch.cat([av[:, :2], av[:, 2:] * 0.5], dim=1)
+    return torch.cat([pos, roll_pitch, yaw, vel, av], dim=1).to(device)
 
 
 def full_state_training_data(

@@ -11,7 +11,9 @@ Run the evaluation CLI with::
 
     python -m apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval \
         [-m MODEL|mpc|ilqr|cem] [-e EPOCH] [-a N] [--swingup] [--sweep] \
-        [--cpu]
+        [--live [N]] [--cpu]
+
+``--live`` replays one 250-step episode of a net in the live 2D viewer.
 """
 
 import argparse
@@ -258,6 +260,40 @@ def _mpc_balance(args, device):
     }))
 
 
+@torch.no_grad()
+def _live(args, net, device, dt, horizon):
+    """``--live``: one 250-step closed-loop episode on the device, from a
+    ``torch.Generator(0)`` swing-up start or upright with theta 0.05, then
+    replayed on the host."""
+    from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
+        cartpole_params,
+    )
+    from apg_trajectory_tracking_tpu_torch.envs.cartpole_env import (
+        env_step,
+        reset_swingup,
+    )
+    from apg_trajectory_tracking_tpu_torch.utils.live_view import (
+        replay_cartpole,
+    )
+
+    dyn = cartpole_params({}, device)
+    if args.swingup:
+        state = reset_swingup(torch.Generator().manual_seed(0), 1, device)
+    else:
+        state = torch.zeros((1, 4), device=device)
+        state[0, 2] = 0.05  # a slight tilt, so there is motion
+    states = []
+    for _ in range(250):
+        action = net(state).reshape(-1, horizon, 1)[:, 0]
+        state = env_step(dyn, state, action, dt)
+        states.append(state[0])
+    n, _ = replay_cartpole(
+        torch.stack(states).cpu().numpy(), dt=dt,
+        max_frames=None if args.live < 0 else args.live,
+    )
+    print(f"live replay: {n} frames")
+
+
 def main(argv=None):
     """The cartpole eval CLI (``scripts/evaluate_cartpole.py``). Swing-up
     starts come from ``torch.Generator(42)`` through ``reset_swingup``, the
@@ -268,7 +304,6 @@ def main(argv=None):
         cartpole_params,
     )
     from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
-        not_ported,
         resolve_model_dir,
     )
     from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
@@ -288,15 +323,14 @@ def main(argv=None):
     parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--live", nargs="?", type=int, const=-1,
                         default=None, metavar="N",
-                        help="not ported (ROADMAP.md queue 1 item 6)")
+                        help="replay one 250-step episode in the live 2D "
+                             "viewer; optional N caps the frames")
     parser.add_argument("--cpu", action="store_true",
                         help="evaluate on the CPU instead of the card")
     args = parser.parse_args(argv)
     if args.model in ("ilqr", "cem") and not args.swingup:
         parser.error(f"-m {args.model} evaluates the swing-up protocol: add "
                      "--swingup (balance MPC is -m mpc)")
-    if args.live is not None:
-        raise not_ported("--live")
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     sweep_keys = {k: v for k, v in DEFAULT_CARTPOLE_CFG.items()
@@ -329,6 +363,8 @@ def main(argv=None):
         net, cfg = load_cartpole_controller(
             resolve_model_dir(args.model, "cartpole"), args.epoch, device)
         dt, horizon = cfg["delta_t"], cfg["horizon"]
+        if args.live is not None:
+            _live(args, net, device, dt, horizon)
 
         def eval_with(modified_params):
             dyn = cartpole_params(modified_params, device)

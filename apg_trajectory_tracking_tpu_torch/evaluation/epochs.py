@@ -28,6 +28,7 @@ from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     load_trajectory_bank,
     prepare_trajectory,
 )
+from apg_trajectory_tracking_tpu_torch.utils.checkpoints import ORBAX_RULE
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
 _SNAPSHOT = re.compile(r"model_quad(\d+)\.(npz|orbax)")
@@ -35,16 +36,15 @@ _SNAPSHOT = re.compile(r"model_quad(\d+)\.(npz|orbax)")
 
 def snapshot_epochs(model_path):
     """The sorted epochs of the run's ``model_quadN.npz`` snapshots; a
-    ``model_quadN.orbax`` snapshot raises SystemExit (the orbax backend is
-    not ported)."""
+    ``model_quadN.orbax`` snapshot raises SystemExit (the port has no
+    orbax backend: :data:`ORBAX_RULE`)."""
     found = [m for f in os.listdir(model_path)
              if (m := _SNAPSHOT.match(f))]
     orbax = sorted(m.group(0) for m in found if m.group(2) == "orbax")
     if orbax:
         raise SystemExit(
-            f"{model_path} holds orbax snapshots ({', '.join(orbax)}); the "
-            f"orbax backend is not ported to PyTorch yet (ROADMAP.md, queue "
-            f"1, item 6)"
+            f"{model_path} holds orbax snapshots ({', '.join(orbax)}); "
+            f"{ORBAX_RULE}"
         )
     return sorted({int(m.group(1)) for m in found})
 

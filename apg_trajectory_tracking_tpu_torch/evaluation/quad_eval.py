@@ -25,12 +25,16 @@ Run the evaluation CLI with::
         [-m MODEL|mpc] [-e EPOCH] [-r rand|poly|hover|straight|circle] \
         [-p eight|curve|flat_eight|sinus] [-a N] [--speed S] [--sweep] \
         [--data_dir D] [--mpc_dynamics M] [--solver adam|ilqr] \
-        [--mpc_horizon H] [--external_sim native|mock] [--cpu]
+        [--mpc_horizon H] [--external_sim native|mock] \
+        [--animate FILE.gif] [--live [N]] [--cpu]
 
-``--external_sim`` flies the rand, poly or waypoint references through an
-external simulator (``envs/external_sim.py``): the C++ quad sim or the
-port's quad step behind the flightgym conventions, one net call per
-control step on the device.
+``--animate`` saves a 3D animation of the first (up to three) rollouts,
+``--live`` replays the first one in the live 2D viewer; both draw on the
+host after one ``.cpu()`` of the card's rollout. ``--external_sim`` flies
+the rand, poly or waypoint references through an external simulator
+(``envs/external_sim.py``): the C++ quad sim or the port's quad step
+behind the flightgym conventions, one net call per control step on the
+device.
 """
 
 import argparse
@@ -52,6 +56,11 @@ from apg_trajectory_tracking_tpu_torch.evaluation.stats import (
 from apg_trajectory_tracking_tpu_torch.models.rnn import (
     init_lstm_state,
     lstm_net_apply,
+)
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    gather_rows,
+    pad_to_multiple,
+    shard_batch,
 )
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import array_ref_window
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
@@ -229,18 +238,33 @@ def run_eval(
     net_window=None,
     dyn_step=quad_step,
     action_transform=torch.sigmoid,
+    mesh=None,
 ):
     """Closed-loop eval on the net's device -> (metrics dict, rollout dict).
 
     ``references`` may be a numpy array or a tensor; it, ``dyn_params`` (any
     params object with ``.to``, a LearntDynamics too) and ``net_carry`` are
     moved to the net's device.
+
+    With a ``mesh`` of several ranks the episodes are padded (repeating
+    episodes from the start) to a multiple of its size, each rank flies its
+    slice of them, the rollouts are gathered on every rank and the pad rows
+    cut off before the metrics, so the protocol is unchanged. Each rank
+    passes its own ``references``: rank r flies slice r of them.
     """
     device = next(net.parameters()).device
     references = torch.as_tensor(references, dtype=torch.float32,
                                  device=device)
     if net_carry is not None:
         net_carry = tuple(t.to(device) for t in net_carry)
+    n_req = references.shape[0]
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        references = shard_batch(
+            mesh, pad_to_multiple(references, mesh.size)[0])
+        if net_carry is not None:
+            net_carry = shard_batch(
+                mesh, pad_to_multiple(net_carry, mesh.size)[0])
     roll = follow_trajectories(
         net, dyn_params.to(device), references, ref_len,
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
@@ -248,6 +272,8 @@ def run_eval(
         net_carry=net_carry, window_len=window_len, net_window=net_window,
         dyn_step=dyn_step, action_transform=action_transform,
     )
+    if sharded:
+        roll = {k: gather_rows(mesh, v)[:n_req] for k, v in roll.items()}
     metrics = metrics_from_rollout(
         roll["divergences"].cpu().numpy(), roll["valid"].cpu().numpy(),
         thresh_div, max_steps, ref_len,
@@ -325,13 +351,6 @@ def eval_kwargs_for(cfg, nr_test):
     if net_window != cfg["horizon"]:
         kwargs["net_window"] = net_window
     return kwargs
-
-
-def not_ported(flag):
-    return SystemExit(
-        f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1, item "
-        f"6: the plotting and live-view infrastructure)"
-    )
 
 
 def external_predict(net, cfg, horizon, device):
@@ -499,6 +518,33 @@ def analytic_setup(ref, cfg, n, device, horizon):
     return init_state, window_fn, project_fn
 
 
+def _draw(args, references, states, valid, dt):
+    """``--animate``: one animation per rollout (up to three), each against
+    its own reference; ``--live``: replay the first rollout. Host arrays
+    in."""
+    if args.animate:
+        from apg_trajectory_tracking_tpu_torch.utils.plotting import (
+            animate_quad,
+        )
+
+        k = min(3, references.shape[0])
+        base, ext = os.path.splitext(args.animate)
+        for i in range(k):
+            out = args.animate if k == 1 else f"{base}_{i}{ext}"
+            animate_quad(references[i], [states[i][valid[i]]], savefile=out)
+            print(f"animation saved to {out}")
+    if args.live is not None and not args.sweep:
+        from apg_trajectory_tracking_tpu_torch.utils.live_view import (
+            replay_quad,
+        )
+
+        n, _ = replay_quad(
+            states[0][valid[0]], reference=np.asarray(references[0]), dt=dt,
+            max_frames=None if args.live < 0 else args.live,
+        )
+        print(f"live replay: {n} frames")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Evaluate a quad controller with the PyTorch port (on "
@@ -529,7 +575,8 @@ def main(argv=None):
     parser.add_argument("--mpc_horizon", type=int, default=10,
                         help="planning horizon for -m mpc")
     parser.add_argument("--animate", default=None, metavar="FILE.gif",
-                        help="not ported (ROADMAP.md queue 1 item 6)")
+                        help="save a 3D flight animation of the first "
+                             "rollouts (rand/poly/waypoint refs)")
     parser.add_argument("--external_sim", default=None,
                         choices=["native", "mock"],
                         help="fly the closed loop through an external "
@@ -539,7 +586,10 @@ def main(argv=None):
                              "refs only")
     parser.add_argument("--live", nargs="?", type=int, const=-1,
                         default=None, metavar="N",
-                        help="not ported (ROADMAP.md queue 1 item 6)")
+                        help="replay the first rollout in the live 2D "
+                             "viewer (interactive with a GUI backend, "
+                             "offscreen under Agg); optional N caps the "
+                             "frames")
     args = parser.parse_args(argv)
     if args.external_sim is not None:
         if args.model == "mpc" or (args.points is None
@@ -552,10 +602,6 @@ def main(argv=None):
         if args.sweep or args.animate or args.live is not None:
             raise SystemExit("--external_sim is a plain-eval path "
                              "(no --sweep/--animate/--live)")
-    for flag, value in (("--animate", args.animate),
-                        ("--live", args.live)):
-        if value is not None:
-            raise not_ported(flag)
 
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
         DEFAULT_QUAD_CFG,
@@ -633,12 +679,16 @@ def main(argv=None):
 
         def eval_with(modified_params):
             references = make_refs()
-            metrics, _ = run_eval(
+            metrics, roll = run_eval(
                 net, quad_params(modified_params), references,
                 references.shape[1] - horizon, thresh_div=1.0,
                 thresh_stable=1.0, horizon=horizon, dt=dt, test_time=True,
                 **eval_kwargs_for(cfg, references.shape[0]),
             )
+            if args.animate or (args.live is not None and not args.sweep):
+                # one copy to the host, then every drawing reads it
+                _draw(args, references, roll["states"].cpu().numpy(),
+                      roll["valid"].cpu().numpy(), dt)
             return metrics
 
         if args.sweep:
@@ -677,6 +727,17 @@ def main(argv=None):
     print(f"{args.ref}: avg divergence {err:.3f}, "
           f"mean steps before divergence "
           f"{valid.sum(axis=1).mean():.1f}")
+    if args.live is not None:
+        from apg_trajectory_tracking_tpu_torch.utils.live_view import (
+            replay_quad,
+        )
+
+        states = roll["states"].cpu().numpy()
+        n_frames, _ = replay_quad(
+            states[0][valid[0]], dt=dt,
+            max_frames=None if args.live < 0 else args.live,
+        )
+        print(f"live replay: {n_frames} frames")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ target.
 Run the evaluation CLI with::
 
     python -m apg_trajectory_tracking_tpu_torch.evaluation.wing_eval \
-        [-m MODEL|mpc] [-e EPOCH] [-a N] [--sweep] [--mpc_horizon H] [--cpu]
+        [-m MODEL|mpc] [-e EPOCH] [-a N] [--sweep] [--mpc_horizon H] \
+        [--live [N]] [--cpu]
+
+``--live`` replays the first episode in the live 2D viewer.
 """
 
 import argparse
@@ -27,6 +30,11 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
     wing_step,
 )
 from apg_trajectory_tracking_tpu_torch.evaluation.stats import bootstrap_ci
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    gather_rows,
+    pad_to_multiple,
+    shard_batch,
+)
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import project_to_line
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     load_checkpoint,
@@ -226,25 +234,39 @@ def run_eval(
     net_apply=_feedforward_apply,
     net_carry=None,
     action_transform=torch.sigmoid,
+    mesh=None,
 ):
     """Fly episodes to ``targets`` on the net's device -> (metrics, rollout
     dict, targets). ``targets`` is (n, 3) waypoints, or a
     ``torch.Generator`` that :func:`draw_targets` draws ``nr_test`` of at
     ``x_dist`` and ``x_std``. ``mean_success`` is the mean over episodes
-    of each episode's mean target distance (lower is better)."""
+    of each episode's mean target distance (lower is better).
+
+    With a ``mesh`` of several ranks the episodes are padded to a multiple
+    of its size, each rank flies its slice, and the rollouts are gathered
+    and cut back to the episodes asked for before the metrics."""
     device = next(net.parameters()).device
     if isinstance(targets, torch.Generator):
         targets = draw_targets(targets, nr_test, x_dist, x_std)
     targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
+    n_req = targets.shape[0]
+    sharded = mesh is not None and mesh.size > 1
+    flown, carry = targets, net_carry
+    if sharded:
+        flown = shard_batch(mesh, pad_to_multiple(targets, mesh.size)[0])
+        if carry is not None:
+            carry = shard_batch(mesh, pad_to_multiple(carry, mesh.size)[0])
     roll = fly_to_point(
-        net, dyn_params.to(device), targets,
+        net, dyn_params.to(device), flown,
         torch.as_tensor(mean, device=device),
         torch.as_tensor(std, device=device),
         thresh_div=thresh_div, thresh_stable=thresh_stable, horizon=horizon,
         max_steps=max_steps, dt=dt, test_time=test_time, dyn_step=dyn_step,
-        net_apply=net_apply, net_carry=net_carry,
+        net_apply=net_apply, net_carry=carry,
         action_transform=action_transform,
     )
+    if sharded:
+        roll = {k: gather_rows(mesh, v)[:n_req] for k, v in roll.items()}
     per_ep = (roll["div_target_sum"].cpu().numpy()
               / roll["div_target_cnt"].cpu().numpy())
     metrics = {
@@ -330,7 +352,6 @@ def main(argv=None):
         wing_params,
     )
     from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
-        not_ported,
         resolve_model_dir,
     )
     from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
@@ -352,12 +373,11 @@ def main(argv=None):
                              "reference's; 20 intercepts within ~0.0003 m)")
     parser.add_argument("--live", nargs="?", type=int, const=-1,
                         default=None, metavar="N",
-                        help="not ported (ROADMAP.md queue 1 item 6)")
+                        help="replay the first episode in the live 2D "
+                             "viewer; optional N caps the frames")
     parser.add_argument("--cpu", action="store_true",
                         help="evaluate on the CPU instead of the card")
     args = parser.parse_args(argv)
-    if args.live is not None:
-        raise not_ported("--live")
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     if args.model == "mpc":
@@ -371,12 +391,24 @@ def main(argv=None):
     std = np.asarray(cfg.get("std", WING_STD), dtype=np.float32)
 
     def eval_with(modified_params):
-        metrics, _, _ = run_eval(
+        metrics, roll, targets = run_eval(
             net, wing_params(modified_params), torch.Generator().manual_seed(
                 42), mean, std, nr_test=args.eval,
             thresh_div=cfg.get("thresh_div", 10.0), thresh_stable=3.0,
             horizon=horizon, dt=dt, test_time=True,
         )
+        if args.live is not None and not args.sweep:
+            from apg_trajectory_tracking_tpu_torch.utils.live_view import (
+                replay_wing,
+            )
+
+            states = roll["states"].cpu().numpy()
+            valid = roll["valid"].cpu().numpy()
+            n, _ = replay_wing(
+                states[0][valid[0]], targets[0].cpu().numpy(), dt=dt,
+                max_frames=None if args.live < 0 else args.live,
+            )
+            print(f"live replay: {n} frames")
         return metrics
 
     if args.sweep:

@@ -64,6 +64,12 @@ class ControlNet(nn.Module):
         return self.fc_out(x)
 
 
+def control_net_apply(net, in_state, in_ref):
+    """The functional form of the JAX package: ``net(in_state, in_ref)``
+    -> logits."""
+    return net(in_state, in_ref)
+
+
 def control_net_to_jax(net):
     """ControlNet -> {jax key: float32 numpy array}."""
     return net_to_jax(net)

@@ -27,6 +27,11 @@ minibatch index array and the one-step gaps are a pure function of their
 states and actions (:func:`one_step_gaps`), so a test can feed the JAX
 package's draws.
 
+Each trainer takes the ``mesh`` of its inner trainer: the fit and the
+controller epochs run data parallel on it (the fit's ``l2_lambda`` term on
+rank 0 only), and the quad and wing evaluations fly each rank's slice of
+their episodes.
+
 Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.adapt cartpole \\
@@ -85,6 +90,7 @@ from apg_trajectory_tracking_tpu_torch.evaluation.robustness import (
     increase_param,
 )
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import make_sharded_epoch
 from apg_trajectory_tracking_tpu_torch.training.common import (
     load_config,
     shuffled_batches,
@@ -173,7 +179,7 @@ class _BufferAdapt:
         self.ld, self.dyn_opt_state, loss = fit_dynamics_epoch(
             self._fit_step, self.ld, self.dyn_opt_state, inner.eval_dyn,
             inner.buffers.states, self.controller_actions(),
-            self._batches(idx),
+            self._batches(idx), mesh=inner.mesh,
         )
         loss = float(loss)
         inner.logger.log("loss_dyn", loss)
@@ -186,11 +192,8 @@ class _BufferAdapt:
         ld = detached(self.ld)
         idx = self._batches(idx)
         t0 = time.perf_counter()
-        losses = torch.stack([
-            self._ctrl_step(ld, inner.buffers.states[b], inner.buffers.refs[b])
-            for b in idx
-        ])
-        loss = float(losses.mean())  # waits for the device
+        loss = float(self._ctrl_epoch(  # waits for the device
+            ld, inner.buffers.states, inner.buffers.refs, idx))
         inner.steps_taken += len(idx)
         inner.logger.log("loss", loss)
         inner.logger.log("epoch_time_s", time.perf_counter() - t0)
@@ -226,9 +229,10 @@ class TrainCartpoleAdapt(TrainCartpole):
 
     def __init__(self, config=None, modified_params=None,
                  train_base_params=False, seed=0, save_name="adapt",
-                 device="cuda"):
+                 device="cuda", tensorboard=False, mesh=None):
         super().__init__(config, swingup=False, seed=seed,
-                         save_name=save_name, device=device)
+                         save_name=save_name, device=device,
+                         tensorboard=tensorboard, mesh=mesh)
         cfg = self.config
         if modified_params is None:
             modified_params = {"wind": 0.5}
@@ -243,12 +247,14 @@ class TrainCartpoleAdapt(TrainCartpole):
         self.dyn_opt_state = self.dyn_optimizer.init(self.ld)
         self._fit_step = build_dynamics_fit_step(
             cartpole_learnt_step, cartpole_step, self.dyn_optimizer, self.dt,
-            l2_lambda=cfg.get("l2_lambda", 0.0),
+            l2_lambda=cfg.get("l2_lambda", 0.0), mesh=self.mesh,
         )
         self._ctrl_step = build_cartpole_step(
             self.net, self.optimizer, self.dt, self.horizon,
-            dyn_step=cartpole_learnt_step,
+            dyn_step=cartpole_learnt_step, mesh=self.mesh,
         )
+        self._ctrl_epoch = make_sharded_epoch(self.mesh, self._ctrl_step,
+                                              n_data=1)
 
     @torch.no_grad()
     def controller_actions(self):
@@ -259,7 +265,7 @@ class TrainCartpoleAdapt(TrainCartpole):
         self.ld, self.dyn_opt_state, loss = fit_dynamics_epoch(
             self._fit_step, self.ld, self.dyn_opt_state, self.eval_dyn,
             self.data, self.controller_actions(),
-            _batches(self, idx, len(self.data)),
+            _batches(self, idx, len(self.data)), mesh=self.mesh,
         )
         loss = float(loss)
         self.logger.log("loss_dyn", loss)
@@ -268,9 +274,7 @@ class TrainCartpoleAdapt(TrainCartpole):
     def run_controller_epoch_learnt(self, idx=None):
         ld = detached(self.ld)
         idx = _batches(self, idx, len(self.data))
-        losses = torch.stack([self._ctrl_step(ld, self.data[b])
-                              for b in idx])
-        loss = float(losses.mean())
+        loss = float(self._ctrl_epoch(ld, self.data, idx))
         self.steps_taken += len(idx)
         self.logger.log("loss", loss)
         return loss
@@ -329,14 +333,16 @@ class TrainQuadAdapt(_BufferAdapt):
 
     def __init__(self, config=None, modified_params=None, base_model=None,
                  train_base_params=False, seed=0, save_name="adapt_quad",
-                 data_dir="data/traj_data", device="cuda"):
+                 data_dir="data/traj_data", device="cuda", tensorboard=False,
+                 mesh=None):
         modified_params = modified_params or {
             "translational_drag": [0.3, 0.3, 0.3]
         }
         self.inner = inner = TrainQuad(
             config, seed=seed, save_name=save_name, data_dir=data_dir,
             eval_modified_params=modified_params, curriculum=False,
-            base_model=base_model, device=device,
+            base_model=base_model, device=device, tensorboard=tensorboard,
+            mesh=mesh,
         )
         cfg = inner.config
         self.ld, _ = make_learnt_quad(inner.generator, std=1e-4,
@@ -349,12 +355,13 @@ class TrainQuadAdapt(_BufferAdapt):
         self.dyn_opt_state = self.dyn_optimizer.init(self.ld)
         self._fit_step = build_dynamics_fit_step(
             quad_learnt_step, quad_step, self.dyn_optimizer, inner.dt,
-            l2_lambda=cfg.get("l2_lambda", 0.0),
+            l2_lambda=cfg.get("l2_lambda", 0.0), mesh=inner.mesh,
         )
         self._ctrl_step = build_concurrent_step(
             inner.net, inner.optimizer, inner.dt, inner.horizon,
-            inner.action_dim, unroll=quad_learnt_rollout,
+            inner.action_dim, unroll=quad_learnt_rollout, mesh=inner.mesh,
         )
+        self._ctrl_epoch = make_sharded_epoch(inner.mesh, self._ctrl_step)
         # best-by-criterion selection in the LEARNT env, score
         # (-ratio_stable, mean_divergence) on a fixed test-bank draw
         self.best_err = (float("inf"), float("inf"))
@@ -379,7 +386,7 @@ class TrainQuadAdapt(_BufferAdapt):
         metrics, roll = quad_eval.run_eval(
             inner.net, self.ld, refs, ref_len, thresh_div=inner.thresh_div,
             thresh_stable=inner.thresh_stable, horizon=inner.horizon,
-            dt=inner.dt, dyn_step=quad_learnt_step,
+            dt=inner.dt, dyn_step=quad_learnt_step, mesh=inner.mesh,
         )
         inner._self_play_insert(roll)
         inner.logger.log_dict(metrics)
@@ -392,7 +399,7 @@ class TrainQuadAdapt(_BufferAdapt):
         metrics, _ = quad_eval.run_eval(
             inner.net, inner.eval_dyn, refs, ref_len,
             thresh_div=inner.thresh_div, thresh_stable=inner.thresh_stable,
-            horizon=inner.horizon, dt=inner.dt,
+            horizon=inner.horizon, dt=inner.dt, mesh=inner.mesh,
         )
         return metrics
 
@@ -406,7 +413,7 @@ class TrainQuadAdapt(_BufferAdapt):
         metrics, _ = quad_eval.run_eval(
             inner.net, self.ld, refs, ref_len, thresh_div=1.0,
             thresh_stable=1.0, horizon=inner.horizon, dt=inner.dt,
-            test_time=True, dyn_step=quad_learnt_step,
+            test_time=True, dyn_step=quad_learnt_step, mesh=inner.mesh,
         )
         return metrics
 
@@ -457,7 +464,7 @@ class TrainWingAdapt(_BufferAdapt):
 
     def __init__(self, config=None, modified_params=None, base_model=None,
                  train_base_params=False, seed=0, save_name="adapt_wing",
-                 device="cuda"):
+                 device="cuda", tensorboard=False, mesh=None):
         cfg = dict(load_config("wing") if config is None else config)
         cfg["thresh_div_start"] = max(cfg.get("thresh_div_start", 20), 20)
         cfg["thresh_stable_start"] = max(cfg["thresh_stable_start"], 1.5)
@@ -465,7 +472,7 @@ class TrainWingAdapt(_BufferAdapt):
         self.inner = inner = TrainWing(
             cfg, seed=seed, save_name=save_name,
             eval_modified_params=modified_params, base_model=base_model,
-            device=device,
+            device=device, tensorboard=tensorboard, mesh=mesh,
         )
         # a restore brings back the checkpoint's own thresholds
         inner.thresh_div = max(inner.thresh_div, 20.0)
@@ -481,12 +488,14 @@ class TrainWingAdapt(_BufferAdapt):
         self.dyn_opt_state = self.dyn_optimizer.init(self.ld)
         self._fit_step = build_dynamics_fit_step(
             wing_learnt_step, wing_step, self.dyn_optimizer, inner.dt,
-            l2_lambda=cfg.get("l2_lambda", 0.0),
+            l2_lambda=cfg.get("l2_lambda", 0.0), mesh=inner.mesh,
         )
         self._ctrl_step = build_wing_step(
             inner.net, inner.optimizer, inner.dt_train, inner.dt,
             inner.horizon, inner.mean, inner.std, dyn_step=wing_learnt_step,
+            mesh=inner.mesh,
         )
+        self._ctrl_epoch = make_sharded_epoch(inner.mesh, self._ctrl_step)
         self.best_err = float("inf")
         self.best_net = copy.deepcopy(inner.net)
 
@@ -509,7 +518,7 @@ class TrainWingAdapt(_BufferAdapt):
             inner.net, self.ld, inner.generator, inner.mean, inner.std,
             nr_test=nr_test, thresh_div=inner.thresh_div,
             thresh_stable=inner.thresh_stable, horizon=inner.horizon,
-            dt=inner.dt, dyn_step=wing_learnt_step,
+            dt=inner.dt, dyn_step=wing_learnt_step, mesh=inner.mesh,
         )
         inner._self_play_insert(roll, targets)
         inner.logger.log_dict(metrics)
@@ -522,7 +531,7 @@ class TrainWingAdapt(_BufferAdapt):
             inner.net, inner.eval_dyn, inner.generator, inner.mean,
             inner.std, nr_test=nr_test, thresh_div=inner.thresh_div,
             thresh_stable=inner.thresh_stable, horizon=inner.horizon,
-            dt=inner.dt, test_time=test_time,
+            dt=inner.dt, test_time=test_time, mesh=inner.mesh,
         )
         return metrics
 

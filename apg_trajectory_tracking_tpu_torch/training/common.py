@@ -1,5 +1,6 @@
 """Shared training machinery: optimizers, minibatch shuffling, config
-loading (counterpart of the JAX package's ``training/common.py``)."""
+loading (counterpart of the JAX package's ``training/common.py``) and the
+train CLIs' shared flags."""
 
 import dataclasses
 import json
@@ -7,6 +8,11 @@ import os
 
 import numpy as np
 import torch
+
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    init_distributed,
+    make_mesh,
+)
 
 CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -88,3 +94,31 @@ def load_config(system, overrides=None, config_dir=None):
     if overrides:
         cfg.update(overrides)
     return cfg
+
+
+def add_infra_args(parser):
+    """The train CLIs' checkpoint, logging and data-parallel flags."""
+    parser.add_argument("--ckpt_backend", default=None,
+                        choices=["npz", "orbax"],
+                        help="checkpoint array backend: npz (orbax is "
+                             "refused: it imports JAX)")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="also log scalars to TensorBoard")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the process group that torchrun "
+                             "describes (env://) before building the mesh")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="mesh size; must equal the world size "
+                             "(default: the whole process group)")
+
+
+def infra_mesh(args):
+    """``--distributed`` joins the process group; ``--devices N`` builds
+    the mesh of N ranks -> the mesh, or None (the trainer's default)."""
+    if args.distributed:
+        init_distributed(backend="gloo" if args.cpu else None)
+    return None if args.devices is None else make_mesh(args.devices)
+
+
+def print_mesh(mesh):
+    print(f"mesh: {mesh.shape} over {mesh.size} device(s)")

@@ -13,6 +13,11 @@ action transform) take Adam steps at ``lr``, the trainable base params at
 
 The actions of the fit batches come from the current controller, so the
 model is fit on the controller's own distribution.
+
+With a mesh of several ranks each rank fits on its slice of every
+minibatch and the gradients are summed over the ranks before the clip.
+The ``l2_lambda`` term does not depend on the batch: rank 0 alone adds it,
+or the sum would count it once per rank.
 """
 
 import dataclasses
@@ -24,6 +29,10 @@ from apg_trajectory_tracking_tpu_torch.dynamics.learnt import (
     learnt_leaves,
     learnt_replace,
     residual_l2,
+)
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    shard_batch,
 )
 from apg_trajectory_tracking_tpu_torch.training.common import (
     adam_update,
@@ -111,22 +120,25 @@ def masked_dynamics_optimizer(lr, ld: LearntDynamics, train_base=False,
 
 
 def build_dynamics_fit_step(learnt_step, eval_step, optimizer, dt,
-                            l2_lambda=0.0):
+                            l2_lambda=0.0, mesh=None):
     """One optimizer step fitting f_hat to the plant on a batch of (s, a).
 
     Args:
         learnt_step: (ld, states, actions, dt) -> next states.
         eval_step: (eval_params, states, actions, dt) -> next states.
+        mesh: the gradients are summed over its ranks (see the module
+            docstring); None or size 1: a single process.
     Returns:
         step(ld, opt_state, eval_params, states, actions)
             -> (ld, opt_state, loss)
     """
+    add_l2 = l2_lambda > 0 and (mesh is None or mesh.rank == 0)
 
     def loss_fn(ld, eval_params, states, actions):
         pred = learnt_step(ld, states, actions, dt)
         target = eval_step(eval_params, states, actions, dt)
         loss = torch.sum((pred - target) ** 2)
-        if l2_lambda > 0:
+        if add_l2:
             loss = loss + l2_lambda * residual_l2(ld.residual)
         return loss
 
@@ -141,6 +153,8 @@ def build_dynamics_fit_step(learnt_step, eval_step, optimizer, dt,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
+        if mesh is not None:
+            all_reduce_sum(mesh, grads)
         ld, opt_state = optimizer.step(ld, grads, opt_state)
         return ld, opt_state, loss.detach()
 
@@ -148,13 +162,19 @@ def build_dynamics_fit_step(learnt_step, eval_step, optimizer, dt,
 
 
 def fit_dynamics_epoch(fit_step, ld, opt_state, eval_params, states, actions,
-                       batches_idx):
+                       batches_idx, mesh=None):
     """Run the fit step over minibatches of the rows of ``states`` and
     ``actions`` (the current controller's action at each row) -> (ld,
-    opt_state, mean loss)."""
+    opt_state, mean loss). With ``mesh`` each rank takes its slice of
+    every minibatch and the losses are summed over the ranks once."""
     losses = []
     for idx in batches_idx:
+        if mesh is not None:
+            idx = shard_batch(mesh, idx)
         ld, opt_state, loss = fit_step(ld, opt_state, eval_params,
                                        states[idx], actions[idx])
         losses.append(loss)
-    return ld, opt_state, torch.stack(losses).mean()
+    losses = torch.stack(losses)
+    if mesh is not None:
+        all_reduce_sum(mesh, [losses])
+    return ld, opt_state, losses.mean()

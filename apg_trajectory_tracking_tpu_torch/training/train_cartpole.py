@@ -13,7 +13,10 @@ Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.train_cartpole \\
         -s NAME [--epochs N] [--balance] [--seed S] [--base_model DIR] \\
-        [--cpu] [--smoke]
+        [--ckpt_backend npz] [--tensorboard] [--distributed] \
+        [--devices N] [--cpu] [--smoke]
+
+(``--distributed`` under torchrun, as the quad's train CLI says).
 """
 
 import argparse
@@ -35,13 +38,25 @@ from apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval import (
 )
 from apg_trajectory_tracking_tpu_torch.losses import cartpole_loss_mpc
 from apg_trajectory_tracking_tpu_torch.models.simple import CartpoleNet
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    auto_mesh,
+    barrier,
+    host_local_fold,
+    make_sharded_epoch,
+    replicate,
+)
 from apg_trajectory_tracking_tpu_torch.training.common import (
+    add_infra_args,
+    infra_mesh,
     load_config,
+    print_mesh,
     sgd_momentum,
     shuffled_batches,
 )
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     checkpoint_exists,
+    orbax_refusal,
     restore_train_state,
     resume_name,
     save_train_state,
@@ -68,14 +83,16 @@ def cartpole_loss(net, dyn_params, states, dt, horizon,
 
 
 def build_cartpole_step(net, optimizer, dt, horizon,
-                        dyn_step=cartpole_step):
+                        dyn_step=cartpole_step, mesh=None):
     """-> ``step(dyn_params, states) -> loss``: one SGD step of
-    ``optimizer`` on ``net``."""
+    ``optimizer`` on ``net``, the gradients summed over the ranks of
+    ``mesh``."""
 
     def step(dyn_params, states):
         optimizer.zero_grad(set_to_none=True)
         loss = cartpole_loss(net, dyn_params, states, dt, horizon, dyn_step)
         loss.backward()
+        all_reduce_grads(mesh, net)
         optimizer.step()
         return loss.detach()
 
@@ -83,17 +100,20 @@ def build_cartpole_step(net, optimizer, dt, horizon,
 
 
 class TrainCartpole:
-    """Host-side orchestration of cartpole APG training."""
+    """Host-side orchestration of cartpole APG training.
+
+    ``mesh``: data parallel as in :class:`TrainQuad`. Each rank samples
+    its states from its own :func:`host_local_fold` generator; the net
+    init, the shuffles and the evaluation, which runs whole on every rank,
+    draw from the shared generator."""
 
     def __init__(self, config=None, swingup=True, seed=0, save_name="test",
-                 base_model=None, device="cuda"):
+                 base_model=None, device="cuda", tensorboard=False,
+                 mesh=None):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("cartpole"))
         if cfg.get("checkpoint_backend", "npz") != "npz":
-            raise NotImplementedError(
-                "the orbax checkpoint backend is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1: extras)"
-            )
+            raise orbax_refusal()
         self.swingup = swingup
         self.dt = cfg["delta_t"]
         self.horizon = cfg["horizon"]
@@ -104,9 +124,13 @@ class TrainCartpole:
         self.train_dyn = cartpole_params(mp, self.device)
         self.eval_dyn = cartpole_params(mp, self.device)
 
+        self.mesh = mesh if mesh is not None else auto_mesh(self.batch_size)
         # the net init, the sampled states, the eval starts and the
-        # minibatch shuffles all draw from one generator
+        # minibatch shuffles all draw from one generator; in a mesh of
+        # several ranks each rank samples its states from its own
         self.generator = torch.Generator().manual_seed(seed)
+        self.data_generator = (self.generator if self.mesh.size == 1
+                               else host_local_fold(seed, self.mesh.rank))
         lr = cfg["learning_rate_controller"]
         if base_model is None:
             self.net = CartpoleNet(
@@ -122,17 +146,22 @@ class TrainCartpole:
                 self.device, lr=lr,
             )
             self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
+        replicate(self.mesh, self.net)
         self._train_step = build_cartpole_step(self.net, self.optimizer,
-                                               self.dt, self.horizon)
+                                               self.dt, self.horizon,
+                                               mesh=self.mesh)
+        self._train_epoch = make_sharded_epoch(self.mesh, self._train_step,
+                                               n_data=1)
         self.steps_taken = 0
         self.data = self._sample()
 
         self.save_path = os.path.join("trained_models", "cartpole", save_name)
-        self.logger = ResultsLogger(self.save_path)
+        self.logger = ResultsLogger(
+            self.save_path, tensorboard=tensorboard and self.mesh.rank == 0)
         self.best_score = np.inf  # lower mean_vel is better
 
     def _sample(self):
-        return sample_states(self.generator, self.config["sample_data"],
+        return sample_states(self.data_generator, self.config["sample_data"],
                              self.dt, self.thresh_div, self.train_dyn)
 
     def run_epoch(self):
@@ -142,10 +171,7 @@ class TrainCartpole:
             self.generator, len(self.data), self.batch_size
         ).to(self.device)
         t0 = time.perf_counter()
-        losses = torch.stack([
-            self._train_step(self.train_dyn, self.data[b]) for b in idx
-        ])
-        loss = float(losses.mean())  # waits for the device
+        loss = float(self._train_epoch(self.train_dyn, self.data, idx))
         self.steps_taken += len(idx)
         self.logger.log("loss", loss)
         self.logger.log("epoch_time_s", time.perf_counter() - t0)
@@ -175,6 +201,7 @@ class TrainCartpole:
         if epoch > 0 and res["mean_vel"] < self.best_score:
             self.best_score = res["mean_vel"]
             self._save()
+            barrier(self.mesh)
         return res
 
     def fit(self, nr_epochs=None, verbose=True):
@@ -191,6 +218,9 @@ class TrainCartpole:
         return self
 
     def _save(self, suffix=""):
+        """Rank 0 writes; the other ranks go on."""
+        if self.mesh.rank != 0:
+            return
         save_train_state(
             self.save_path, "model_cartpole" + suffix, self.net,
             self.optimizer, {**self.config, "thresh_div": self.thresh_div},
@@ -198,11 +228,14 @@ class TrainCartpole:
 
     def finalize(self):
         # the best-by-criterion model_cartpole was saved in evaluate(); the
-        # final weights go under their own name
-        self._save(suffix="_final")
-        if not checkpoint_exists(self.save_path, "model_cartpole"):
-            self._save()
-        self.logger.finalize()
+        # final weights go under their own name. Rank 0 writes, the others
+        # wait.
+        if self.mesh.rank == 0:
+            self._save(suffix="_final")
+            if not checkpoint_exists(self.save_path, "model_cartpole"):
+                self._save()
+            self.logger.finalize()
+        barrier(self.mesh)
 
 
 def main(argv=None):
@@ -220,15 +253,21 @@ def main(argv=None):
                         help="train on the CPU instead of the card")
     parser.add_argument("--smoke", action="store_true",
                         help="tiny run: 3 epochs, 200 samples")
+    add_infra_args(parser)
     args = parser.parse_args(argv)
+    mesh = infra_mesh(args)
     overrides = {}
     if args.smoke:
         overrides = {"sample_data": 200, "nr_epochs": 3}
+    if args.ckpt_backend:
+        overrides["checkpoint_backend"] = args.ckpt_backend
     trainer = TrainCartpole(
         load_config("cartpole", overrides), swingup=not args.balance,
         seed=args.seed, save_name=args.save_name,
         base_model=args.base_model, device="cpu" if args.cpu else "cuda",
+        tensorboard=args.tensorboard, mesh=mesh,
     )
+    print_mesh(trainer.mesh)
     trainer.fit(args.epochs)
 
 

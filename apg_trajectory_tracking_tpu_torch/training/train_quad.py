@@ -21,7 +21,17 @@ Run it with::
     python -m apg_trajectory_tracking_tpu_torch.training.train_quad \
         -s NAME [-m concurrent|autoregressive|LSTM] [--epochs N] \
         [--seed S] [--no-curriculum] [--smoke] [-o KEY=VALUE ...] \
-        [--base_model DIR] [--minjerk_mix F] [--data_dir D] [--cpu]
+        [--base_model DIR] [--minjerk_mix F] [--data_dir D] \
+        [--ckpt_backend npz] [--tensorboard] [--distributed] \
+        [--devices N] [--cpu]
+
+and across processes under torchrun, one rank per card::
+
+    torchrun --nproc_per_node N -m \
+        apg_trajectory_tracking_tpu_torch.training.train_quad \
+        --distributed [--devices N] ...
+
+The minibatch size must split evenly over the ranks.
 """
 
 import argparse
@@ -56,6 +66,14 @@ from apg_trajectory_tracking_tpu_torch.models.rnn import (
     lstm_net_apply,
 )
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    auto_mesh,
+    barrier,
+    host_local_rng,
+    make_sharded_epoch,
+    replicate,
+)
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     ensure_trajectory_bank,
     load_trajectory_bank,
@@ -66,12 +84,16 @@ from apg_trajectory_tracking_tpu_torch.trajectory.minjerk import (
 )
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import _to_state_rows
 from apg_trajectory_tracking_tpu_torch.training.common import (
+    add_infra_args,
+    infra_mesh,
     load_config,
+    print_mesh,
     sgd_momentum,
     shuffled_batches,
 )
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     checkpoint_exists,
+    orbax_refusal,
     restore_train_state,
     resume_name,
     save_train_state,
@@ -130,18 +152,20 @@ def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
 
 
 def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
-                          remat=False, unroll=None):
+                          remat=False, unroll=None, mesh=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
     ``optimizer`` on ``net``. ``remat`` recomputes each dynamics step in
     the backward pass on the CPU twin; the kernel path keeps only the
     rollout's outputs and recomputes nothing. ``unroll``: see
-    :func:`concurrent_loss`."""
+    :func:`concurrent_loss`. ``mesh``: the gradients are summed over its
+    ranks before the optimizer step (:func:`all_reduce_grads`)."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = concurrent_loss(net, dyn_params, states, refs, dt, horizon,
                                action_dim, remat, unroll)
         loss.backward()
+        all_reduce_grads(mesh, net)
         optimizer.step()
         return loss.detach()
 
@@ -191,15 +215,17 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
 
 
 def build_recurrent_step(net, optimizer, dt, horizon, lstm=False,
-                         lstm_hidden=8, unroll=None):
+                         lstm_hidden=8, unroll=None, mesh=None):
     """-> ``step(dyn_params, states, refs2h) -> loss``: one SGD step of
-    ``optimizer`` on ``net`` in the autoregressive or LSTM mode."""
+    ``optimizer`` on ``net`` in the autoregressive or LSTM mode, the
+    gradients summed over the ranks of ``mesh``."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = recurrent_loss(net, dyn_params, states, refs, dt, horizon,
                               lstm, lstm_hidden, unroll)
         loss.backward()
+        all_reduce_grads(mesh, net)
         optimizer.step()
         return loss.detach()
 
@@ -226,12 +252,6 @@ def _take_base_width(cfg, base_model):
     cfg["hidden"] = base_hidden
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1: {item})"
-    )
-
-
 class TrainQuad:
     """Host-side orchestration of quad APG training.
 
@@ -240,6 +260,15 @@ class TrainQuad:
     feeds the self-play ring and the checkpoint choice: a custom step, an
     action-space ablation for instance, is what the run is evaluated on.
     :func:`dyn_step_unroll` says which steps train on the kernels.
+
+    ``mesh`` (default :func:`auto_mesh`: size 1 outside a process group)
+    runs the epoch data parallel: each rank samples its own buffers from
+    :func:`host_local_rng`, trains on its slice of every minibatch (the
+    same permutation on every rank) with the gradients summed over the
+    ranks, and flies its slice of the eval references; the gathered eval
+    metrics take every decision of the epoch loop, so the ranks stay in
+    lockstep. Rank 0 alone writes checkpoints and logs. At size 1 the
+    trainer runs the plain single-process code.
     """
 
     def __init__(
@@ -256,6 +285,8 @@ class TrainQuad:
         minjerk_mix=0.0,
         device="cuda",
         dyn_step=quad_step,
+        tensorboard=False,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("quad"))
@@ -272,7 +303,7 @@ class TrainQuad:
             )
         self.minjerk_mix = float(minjerk_mix)
         if cfg.get("checkpoint_backend", "npz") != "npz":
-            raise _not_ported("the orbax checkpoint backend", "extras")
+            raise orbax_refusal()
 
         self.dt = cfg["delta_t"]
         self.horizon = cfg["horizon"]
@@ -300,10 +331,13 @@ class TrainQuad:
         self.bank = load_trajectory_bank(ensure_trajectory_bank(data_dir))
         self.test_bank = load_trajectory_bank(data_dir, test=True)
 
+        # each rank's buffers need not split: only the minibatch does
+        self.mesh = mesh if mesh is not None else auto_mesh(self.batch_size)
         # numpy draws (data sampling, eval references) follow the JAX
-        # trainer's RandomState(seed); the net init and minibatch shuffles
-        # draw from a torch generator
-        self.rng = np.random.RandomState(seed)
+        # trainer's RandomState(seed), on rank r its host_local_rng stream;
+        # the net init and minibatch shuffles draw from a torch generator,
+        # the same on every rank
+        self.rng = host_local_rng(seed, self.mesh.rank)
         self.generator = torch.Generator().manual_seed(seed)
         if base_model is not None:
             _take_base_width(cfg, base_model)
@@ -345,20 +379,22 @@ class TrainQuad:
             if curriculum:
                 self.speed_factor = base_cfg.get("speed_factor",
                                                  self.speed_factor)
+        replicate(self.mesh, self.net)
         self.dyn_step = dyn_step
         self.unroll = dyn_step_unroll(dyn_step)
         if self.mode == "concurrent":
             self._train_step = build_concurrent_step(
                 self.net, self.optimizer, self.dt, self.horizon,
-                self.action_dim, unroll=self.unroll,
+                self.action_dim, unroll=self.unroll, mesh=self.mesh,
             )
         else:
             self._train_step = build_recurrent_step(
                 self.net, self.optimizer, self.dt, self.horizon,
                 lstm=self.mode == "LSTM",
                 lstm_hidden=getattr(self, "lstm_hidden", 8),
-                unroll=self.unroll,
+                unroll=self.unroll, mesh=self.mesh,
             )
+        self._train_epoch = make_sharded_epoch(self.mesh, self._train_step)
         self.steps_taken = 0
 
         # epoch_size sampled rows + self_play * epoch_size ring slots
@@ -376,7 +412,8 @@ class TrainQuad:
         self._apply_minjerk_mix()
 
         self.save_path = os.path.join("trained_models", "quad", save_name)
-        self.logger = ResultsLogger(self.save_path)
+        self.logger = ResultsLogger(
+            self.save_path, tensorboard=tensorboard and self.mesh.rank == 0)
         # best-model criterion: 1 keeps the highest mean_success, -1 the
         # lowest mean_divergence
         self.suc_up_down = cfg.get("suc_up_down", 1)
@@ -413,7 +450,7 @@ class TrainQuad:
             self.net, self.eval_dyn, refs, ref_len,
             thresh_div=self.thresh_div, thresh_stable=self.thresh_stable,
             horizon=self.horizon, dt=self.dt, test_time=test_time,
-            dyn_step=self.dyn_step, **recurrent,
+            dyn_step=self.dyn_step, mesh=self.mesh, **recurrent,
         )
         if not test_time:
             self._self_play_insert(roll)
@@ -435,6 +472,7 @@ class TrainQuad:
             # epoch-suffixed snapshot on improvement, then the best one
             self._save(epoch=epoch)
             self._save()
+            barrier(self.mesh)
         return metrics
 
     def _self_play_insert(self, roll):
@@ -503,12 +541,8 @@ class TrainQuad:
             self.generator, len(self.buffers.states), self.batch_size
         ).to(self.device)
         t0 = time.perf_counter()
-        losses = torch.stack([
-            self._train_step(self.train_dyn, self.buffers.states[b],
-                             self.buffers.refs[b])
-            for b in idx
-        ])
-        loss = float(losses.mean())  # waits for the device
+        loss = float(self._train_epoch(  # waits for the device
+            self.train_dyn, self.buffers.states, self.buffers.refs, idx))
         dt_epoch = time.perf_counter() - t0
         self.steps_taken += len(idx)
         self.logger.log("loss", loss)
@@ -536,6 +570,9 @@ class TrainQuad:
         return self
 
     def _save(self, epoch=None, suffix=""):
+        """Rank 0 writes; the other ranks go on (see :meth:`finalize`)."""
+        if self.mesh.rank != 0:
+            return
         name = "model_quad" + (str(epoch) if epoch is not None else suffix)
         save_train_state(
             self.save_path, name, self.net, self.optimizer,
@@ -553,11 +590,13 @@ class TrainQuad:
     def finalize(self):
         # the final weights go under their own name; the unsuffixed
         # model_quad stays the best-by-criterion snapshot, unless no
-        # improvement was ever recorded
-        self._save(suffix="_final")
-        if not checkpoint_exists(self.save_path, "model_quad"):
-            self._save()
-        self.logger.finalize()
+        # improvement was ever recorded. Rank 0 writes, the others wait.
+        if self.mesh.rank == 0:
+            self._save(suffix="_final")
+            if not checkpoint_exists(self.save_path, "model_quad"):
+                self._save()
+            self.logger.finalize()
+        barrier(self.mesh)
 
 
 def parse_overrides(parser, items):
@@ -600,20 +639,27 @@ def main(argv=None):
     parser.add_argument("--data_dir", default="data/traj_data",
                         help="trajectory bank directory (generated on "
                              "first use)")
+    add_infra_args(parser)
     parser.add_argument("--cpu", action="store_true",
                         help="train on the CPU instead of the card")
     args = parser.parse_args(argv)
+    mesh = infra_mesh(args)
     overrides = {}
     if args.smoke:
         overrides = {"epoch_size": 64, "nr_epochs": 2, "self_play": 1}
     overrides.update(parse_overrides(parser, args.override))
+    config = {**load_config("quad"), **overrides}
+    if args.ckpt_backend:
+        config["checkpoint_backend"] = args.ckpt_backend
     trainer = TrainQuad(
-        {**load_config("quad"), **overrides}, train_mode=args.mode,
+        config, train_mode=args.mode,
         seed=args.seed, save_name=args.save_name,
         curriculum=not args.no_curriculum, data_dir=args.data_dir,
         base_model=args.base_model, minjerk_mix=args.minjerk_mix,
         device="cpu" if args.cpu else "cuda",
+        tensorboard=args.tensorboard, mesh=mesh,
     )
+    print_mesh(trainer.mesh)
     trainer.fit(args.epochs)
 
 

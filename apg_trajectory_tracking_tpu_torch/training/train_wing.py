@@ -13,7 +13,11 @@ target error.
 Run it with::
 
     python -m apg_trajectory_tracking_tpu_torch.training.train_wing \\
-        -s NAME [--epochs N] [--seed S] [--base_model DIR] [--smoke] [--cpu]
+        -s NAME [--epochs N] [--seed S] [--base_model DIR] [--smoke] \
+        [--ckpt_backend npz] [--tensorboard] [--distributed] \
+        [--devices N] [--cpu]
+
+(``--distributed`` under torchrun, as the quad's train CLI says).
 """
 
 import argparse
@@ -40,13 +44,25 @@ from apg_trajectory_tracking_tpu_torch.envs.wing_env import (
 from apg_trajectory_tracking_tpu_torch.evaluation.wing_eval import run_eval
 from apg_trajectory_tracking_tpu_torch.losses import fixed_wing_mpc_loss
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    auto_mesh,
+    barrier,
+    host_local_rng,
+    make_sharded_epoch,
+    replicate,
+)
 from apg_trajectory_tracking_tpu_torch.training.common import (
+    add_infra_args,
+    infra_mesh,
     load_config,
+    print_mesh,
     sgd_momentum,
     shuffled_batches,
 )
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     checkpoint_exists,
+    orbax_refusal,
     restore_train_state,
     resume_name,
     save_train_state,
@@ -74,16 +90,17 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
 
 
 def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,
-                    dyn_step=wing_step):
+                    dyn_step=wing_step, mesh=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
-    ``optimizer`` on ``net``; ``mean``/``std`` are tensors on the net's
-    device."""
+    ``optimizer`` on ``net``, the gradients summed over the ranks of
+    ``mesh``; ``mean``/``std`` are tensors on the net's device."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
         loss = wing_loss(net, dyn_params, states, refs, mean, std, dt_train,
                          dt, horizon, dyn_step)
         loss.backward()
+        all_reduce_grads(mesh, net)
         optimizer.step()
         return loss.detach()
 
@@ -91,18 +108,21 @@ def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,
 
 
 class TrainWing:
-    """Host-side orchestration of fixed-wing APG training."""
+    """Host-side orchestration of fixed-wing APG training.
+
+    ``mesh``: data parallel as in :class:`TrainQuad`; each rank samples
+    its exploration flights from :func:`host_local_rng`, the eval targets
+    come from the shared generator and each rank flies its slice of
+    them."""
 
     def __init__(self, config=None, seed=0, save_name="test",
                  modified_params=None, eval_modified_params=None,
-                 base_model=None, device="cuda"):
+                 base_model=None, device="cuda", tensorboard=False,
+                 mesh=None):
         self.device = resolve_device(device)
         self.config = cfg = dict(config or load_config("wing"))
         if cfg.get("checkpoint_backend", "npz") != "npz":
-            raise NotImplementedError(
-                "the orbax checkpoint backend is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1: extras)"
-            )
+            raise orbax_refusal()
         self.dt = cfg["delta_t"]
         self.dt_train = cfg.get("delta_t_train", self.dt)
         self.horizon = cfg["horizon"]
@@ -120,10 +140,12 @@ class TrainWing:
             self.device,
         )
 
+        self.mesh = mesh if mesh is not None else auto_mesh(self.batch_size)
         # numpy draws (the exploration flights' sampling) follow the JAX
-        # trainer's RandomState(seed); the net init, eval targets and
-        # minibatch shuffles draw from a torch generator
-        self.rng = np.random.RandomState(seed)
+        # trainer's RandomState(seed), on rank r its host_local_rng stream;
+        # the net init, eval targets and minibatch shuffles draw from a
+        # torch generator, the same on every rank
+        self.rng = host_local_rng(seed, self.mesh.rank)
         self.generator = torch.Generator().manual_seed(seed)
         # 9 state features (position dropped) and a dense reference branch
         # over the (1, 3) relative target
@@ -144,12 +166,14 @@ class TrainWing:
             self.thresh_div = base_cfg.get("thresh_div", self.thresh_div)
             self.thresh_stable = base_cfg.get("thresh_stable",
                                               self.thresh_stable)
+        replicate(self.mesh, self.net)
         self.mean = torch.as_tensor(WING_MEAN, device=self.device)
         self.std = torch.as_tensor(WING_STD, device=self.device)
         self._train_step = build_wing_step(
             self.net, self.optimizer, self.dt_train, self.dt, self.horizon,
-            self.mean, self.std,
+            self.mean, self.std, mesh=self.mesh,
         )
+        self._train_epoch = make_sharded_epoch(self.mesh, self._train_step)
         self.steps_taken = 0
 
         # epoch_size sampled rows + self_play ring slots, first filled with
@@ -164,7 +188,8 @@ class TrainWing:
         self.buffers = make_wing_buffers(states, refs, n_sp, self.device)
 
         self.save_path = os.path.join("trained_models", "wing", save_name)
-        self.logger = ResultsLogger(self.save_path)
+        self.logger = ResultsLogger(
+            self.save_path, tensorboard=tensorboard and self.mesh.rank == 0)
         self.best_score = np.inf  # lower test-time error is better
 
     def _run_eval(self, nr_test, test_time=False):
@@ -172,7 +197,7 @@ class TrainWing:
             self.net, self.eval_dyn, self.generator, self.mean, self.std,
             nr_test=nr_test, thresh_div=self.thresh_div,
             thresh_stable=self.thresh_stable, horizon=self.horizon,
-            dt=self.dt, test_time=test_time,
+            dt=self.dt, test_time=test_time, mesh=self.mesh,
         )
 
     def _self_play_insert(self, roll, targets):
@@ -218,6 +243,7 @@ class TrainWing:
         if epoch > 0 and test_metrics["mean_success"] < self.best_score:
             self.best_score = test_metrics["mean_success"]
             self._save()
+            barrier(self.mesh)
         return {**metrics, "test_err": test_metrics["mean_success"]}
 
     def run_epoch(self):
@@ -225,12 +251,8 @@ class TrainWing:
             self.generator, len(self.buffers.states), self.batch_size
         ).to(self.device)
         t0 = time.perf_counter()
-        losses = torch.stack([
-            self._train_step(self.train_dyn, self.buffers.states[b],
-                             self.buffers.refs[b])
-            for b in idx
-        ])
-        loss = float(losses.mean())  # waits for the device
+        loss = float(self._train_epoch(  # waits for the device
+            self.train_dyn, self.buffers.states, self.buffers.refs, idx))
         self.steps_taken += len(idx)
         self.logger.log("loss", loss)
         self.logger.log("epoch_time_s", time.perf_counter() - t0)
@@ -252,6 +274,9 @@ class TrainWing:
         return self
 
     def _save(self, suffix=""):
+        """Rank 0 writes; the other ranks go on."""
+        if self.mesh.rank != 0:
+            return
         save_train_state(
             self.save_path, "model_wing" + suffix, self.net, self.optimizer,
             {
@@ -265,11 +290,14 @@ class TrainWing:
 
     def finalize(self):
         # the best-by-criterion model_wing was saved in evaluate(); the
-        # final weights go under their own name
-        self._save(suffix="_final")
-        if not checkpoint_exists(self.save_path, "model_wing"):
-            self._save()
-        self.logger.finalize()
+        # final weights go under their own name. Rank 0 writes, the others
+        # wait.
+        if self.mesh.rank == 0:
+            self._save(suffix="_final")
+            if not checkpoint_exists(self.save_path, "model_wing"):
+                self._save()
+            self.logger.finalize()
+        barrier(self.mesh)
 
 
 def main(argv=None):
@@ -286,15 +314,22 @@ def main(argv=None):
                         help="train on the CPU instead of the card")
     parser.add_argument("--smoke", action="store_true",
                         help="tiny run: 2 epochs, small dataset")
+    add_infra_args(parser)
     args = parser.parse_args(argv)
+    mesh = infra_mesh(args)
     overrides = {}
     if args.smoke:
         overrides = {"self_play": 200, "nr_epochs": 2, "epoch_size": 64}
+    config = {**load_config("wing"), **overrides}
+    if args.ckpt_backend:
+        config["checkpoint_backend"] = args.ckpt_backend
     trainer = TrainWing(
-        {**load_config("wing"), **overrides}, seed=args.seed,
+        config, seed=args.seed,
         save_name=args.save_name, base_model=args.base_model,
         device="cpu" if args.cpu else "cuda",
+        tensorboard=args.tensorboard, mesh=mesh,
     )
+    print_mesh(trainer.mesh)
     trainer.fit(args.epochs)
 
 

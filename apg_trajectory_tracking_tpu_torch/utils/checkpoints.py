@@ -27,6 +27,16 @@ from apg_trajectory_tracking_tpu_torch.models.simple import (
 from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
 
 OPT_PREFIX = "[0].trace"
+# why the port has no orbax backend: a rule of the port, not a gap
+ORBAX_RULE = (
+    "orbax.checkpoint imports JAX, which the PyTorch port may not import "
+    "(ROADMAP.md, rules); the port reads and writes the npz backend"
+)
+
+
+def orbax_refusal(what="the orbax checkpoint backend"):
+    """The error for anything that asks the port for orbax."""
+    return NotImplementedError(f"{what} is refused: {ORBAX_RULE}")
 
 
 def checkpoint_exists(save_dir, name):
@@ -47,7 +57,13 @@ def save_checkpoint(save_dir, name, arrays, config=None):
 
 
 def load_checkpoint(save_dir, name):
-    """``<name>.npz`` -> {key: numpy array}."""
+    """``<name>.npz`` -> {key: numpy array}. An orbax ``<name>.orbax``
+    directory with no npz beside it raises :func:`orbax_refusal`'s
+    error."""
+    path = os.path.join(save_dir, f"{name}.npz")
+    if (not os.path.exists(path)
+            and os.path.isdir(os.path.join(save_dir, f"{name}.orbax"))):
+        raise orbax_refusal(f"the orbax checkpoint {name}.orbax in {save_dir}")
     with np.load(os.path.join(save_dir, f"{name}.npz")) as data:
         return {k: data[k] for k in data.files}
 

@@ -163,7 +163,25 @@ Phases, in order; any failure exits non-zero:
      exactly one forward kernel per control step and no backward), the
      mock's step against the plain twin, and the quad eval CLI with
      ``--external_sim native`` and ``mock`` on the card against
-     ``--cpu``.
+     ``--cpu``;
+  18. data parallel on ``torch.distributed`` and the infrastructure, at
+     the shipped quad config's widths (hidden 64, conv 20, h = 10, batch
+     8) for 2 epochs: a plain ``TrainQuad`` (concurrent) and one with the
+     mesh of an NCCL process group of one, each with its launch counts
+     set to 0 just before it and read just after (one launch of each
+     kernel per step), every loss, eval metric and parameter equal bit
+     for bit; a ``debug.trace`` of 3 mesh train steps (the Chrome trace
+     names both rollout kernels and one ``nccl:all_reduce`` per step; the
+     NCCL kernels are counted too); the step
+     timed with the all-reduce and without it; the multihost smoke with
+     two ranks on the one card through gloo (both ranks report the same
+     loss and checksum, within 1e-5 relative of one process; the sharded
+     ``run_eval`` at 5 episodes, padded to 6, within 1e-6 of one
+     process); the mesh trainer logs to TensorBoard and writes
+     ``performance.png``, and the quad eval CLI runs ``--animate`` and
+     ``--live`` on the card, where tensorboard and matplotlib are
+     installed (the phase prints which step did not run where one is
+     absent).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +192,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import importlib
 import io
 import json
 import math
@@ -3850,6 +3869,227 @@ def phase_image_and_deployment(device):
     return by_path
 
 
+DP_EPOCHS = 2
+DP_TRACE_STEPS = 3
+SMOKE_TIMEOUT = 300
+
+
+def importable(name):
+    """Whether ``name`` imports; a missing optional package is the JAX
+    package's own documented fallback, not a failure."""
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def captured_or_logged(fn):
+    """:func:`captured` under [18]; if ``fn`` raises, what it printed is
+    logged before the error goes on."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[18]   | {line}")
+    return out, buf.getvalue()
+
+
+def dp_trainers(device, tmp):
+    """The plain TrainQuad and, inside an NCCL process group of one, the
+    mesh TrainQuad (with TensorBoard), 2 epochs each with the launch
+    counts set to 0 just before and read just after -> (plain, meshed,
+    {path: launches})."""
+    from apg_trajectory_tracking_tpu_torch.parallel import mesh as M
+    from apg_trajectory_tracking_tpu_torch.training.common import load_config
+    from apg_trajectory_tracking_tpu_torch.training.train_quad import TrainQuad
+
+    data_dir = os.path.join(ROOT, "data", "traj_data")
+    trainers, by_path = {}, {}
+    for path in ("dp_plain", "dp_group_of_one"):
+        save_name = f"chip_smoke_{path}"
+        shutil.rmtree(os.path.join("trained_models", "quad", save_name),
+                      ignore_errors=True)
+        kw = {}
+        if path == "dp_group_of_one":
+            M.init_distributed("file://" + os.path.join(tmp, "store"), 1, 0,
+                               backend="nccl")
+            kw = {"mesh": M.make_mesh(), "tensorboard": True}
+            assert kw["mesh"].collective and kw["mesh"].size == 1
+        trainer = TrainQuad(load_config("quad"), save_name=save_name,
+                            data_dir=data_dir, device=device, **kw)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.fit(DP_EPOCHS, verbose=False)
+        by_path[path] = launches = read_launches()
+        log(f"[18] {path}: {DP_EPOCHS} epochs in "
+            f"{time.perf_counter() - t0:.1f} s; steps "
+            f"{trainer.steps_taken}; launches {launches}; mesh "
+            f"{trainer.mesh}")
+        for name, n in launches.items():
+            if n != trainer.steps_taken or n == 0:
+                raise AssertionError(f"[18] {path}: {name} launched {n} "
+                                     f"times in {trainer.steps_taken} steps")
+        trainers[path] = trainer
+    plain, meshed = trainers["dp_plain"], trainers["dp_group_of_one"]
+    for key in ("loss", "mean_success", "mean_divergence"):
+        if plain.logger.results[key] != meshed.logger.results[key]:
+            raise AssertionError(f"[18] {key} differs in a group of one: "
+                                 f"{plain.logger.results[key]} vs "
+                                 f"{meshed.logger.results[key]}")
+    for (name, a), b in zip(plain.net.named_parameters(),
+                            meshed.net.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[18] {name} differs in a group of one")
+    log(f"[18] group of one: losses {plain.logger.results['loss']} and "
+        f"every parameter bit-equal to the plain trainer")
+    return plain, meshed, by_path
+
+
+def dp_trace_and_timing(plain, meshed, tmp):
+    """A Chrome trace of DP_TRACE_STEPS mesh train steps, and the step's
+    host time with and without the all-reduce -> the numbers."""
+    from apg_trajectory_tracking_tpu_torch.parallel import mesh as M
+    from apg_trajectory_tracking_tpu_torch.utils import debug
+
+    dyn = meshed.train_dyn
+    states, refs = meshed.buffers.states, meshed.buffers.refs
+    b = torch.arange(TRAIN_B, device=states.device)
+    step = M.make_sharded_train_step(meshed.mesh, meshed._train_step)
+    step(dyn, states[b], refs[b])
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(tmp, "trace")
+    with debug.trace(trace_dir):
+        for _ in range(DP_TRACE_STEPS):
+            step(dyn, states[b], refs[b])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(k in n for n in names)
+              for k in ("quad_rollout_fwd_kernel", "quad_rollout_bwd_kernel")}
+    # the collective as issued, and the kernels NCCL launched for it: an
+    # in-place sum over one rank needs none
+    counts["nccl:all_reduce"] = sum(e.get("name") == "nccl:all_reduce"
+                                    for e in events)
+    nccl_kernels = sum("nccl" in n.lower() for n in names)
+    nccl_names = sorted({str(e.get("name")) for e in events
+                         if "nccl" in str(e.get("name", "")).lower()})
+    log(f"[18] trace of {DP_TRACE_STEPS} mesh steps: {len(names)} kernels, "
+        f"{counts}, NCCL kernels {nccl_kernels}; NCCL-named events "
+        f"{nccl_names}")
+    for name, n in counts.items():
+        if n != DP_TRACE_STEPS:
+            raise AssertionError(f"[18] the trace holds {n} {name} in "
+                                 f"{DP_TRACE_STEPS} steps")
+
+    def plain_step():
+        plain._train_step(plain.train_dyn, states[b], refs[b])
+
+    def mesh_step():
+        step(dyn, states[b], refs[b])
+
+    ms = {"plain": [], "all_reduce": []}
+    for label, fn in (("plain", plain_step), ("all_reduce", mesh_step),
+                      ("all_reduce", mesh_step), ("plain", plain_step)):
+        ms[label].append(time_host(fn))
+    out = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[18] train step at B = {TRAIN_B}, median host ms (ABBA): plain "
+        f"{ms['plain']}, with the all-reduce {ms['all_reduce']}")
+    return {"all_reduce_calls_per_step":
+            counts["nccl:all_reduce"] / DP_TRACE_STEPS,
+            "nccl_kernels_per_step": nccl_kernels / DP_TRACE_STEPS,
+            "step_ms": out["plain"], "step_all_reduce_ms": out["all_reduce"]}
+
+
+def dp_two_ranks():
+    """The multihost smoke: two ranks on the one card through gloo, and
+    the sharded run_eval, against one process."""
+    from apg_trajectory_tracking_tpu_torch.parallel import multihost_smoke
+
+    t0 = time.perf_counter()
+    result, _ = captured_or_logged(lambda: multihost_smoke.main([
+        "--nproc", "2", "--device", "cuda", "--backend", "gloo",
+        "--eval", "5", "--eval_model",
+        os.path.join(ROOT, "assets", "quad_trained"), "--timeout",
+        str(SMOKE_TIMEOUT)]))
+    log(f"[18] two gloo ranks on the card in {time.perf_counter() - t0:.1f} "
+        f"s: loss {result['epoch_loss']!r} (one process "
+        f"{result['single_epoch_loss']!r}), checksum "
+        f"{result['param_checksum']!r} (one process "
+        f"{result['single_param_checksum']!r}); sharded eval max gap "
+        f"{result['eval_max_abs_gap']}")
+    return result
+
+
+def dp_logging_and_drawing(meshed, tmp):
+    """TensorBoard and the performance plot of the mesh trainer, and the
+    quad eval CLI's --animate and --live on the card, where the optional
+    packages are installed."""
+    from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
+
+    have = {name: importable(name) for name in ("tensorboard", "matplotlib")}
+    log(f"[18] importable: {have}")
+    files = os.listdir(meshed.save_path)
+    if have["tensorboard"]:
+        if not any(f.startswith("events.out.tfevents") for f in files):
+            raise AssertionError("[18] no TensorBoard events were written")
+        log("[18] TensorBoard events written")
+    else:
+        log("[18] tensorboard absent: the TensorBoard step did not run "
+            "(the logger printed its fallback)")
+    if not have["matplotlib"]:
+        log("[18] matplotlib absent: performance.png, --animate and --live "
+            "did not run")
+        return
+    if "performance.png" not in files:
+        raise AssertionError("[18] performance.png was not written")
+    gif = os.path.join(tmp, "flight.gif")
+    (_, text), launches, secs = counted(lambda: captured_or_logged(
+        lambda: quad_eval.main([
+            "-m", os.path.join(ROOT, "assets", "quad_trained"), "-a", "1",
+            "--speed", "1.0", "--data_dir",
+            os.path.join(ROOT, "data", "traj_data"), "--animate", gif,
+            "--live", "20"])))
+    log(f"[18] quad eval CLI with --animate and --live on the card: "
+        f"{secs:.1f} s; launches {launches}")
+    if not os.path.isfile(gif) or "live replay: 20 frames" not in text:
+        raise AssertionError(f"[18] --animate/--live did not run: {text}")
+    log("[18] performance.png, the --animate GIF and a 20-frame --live "
+        "replay written on the card's rollout")
+
+
+def phase_data_parallel(device, smi):
+    """Phase 18, leg by leg with its time -> ({path: launches}, numbers)."""
+    import torch.distributed as dist
+
+    tmp = os.path.join(ROOT, "trained_models", "chip_smoke_dp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    log(f"[18] {smi}")
+    t = time.perf_counter()
+    try:
+        plain, meshed, by_path = dp_trainers(device, tmp)
+        log(f"[time] phase 18 trainers {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        numbers = dp_trace_and_timing(plain, meshed, tmp)
+        log(f"[time] phase 18 trace and timing {time.perf_counter() - t:.1f}"
+            f" s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    t = time.perf_counter()
+    numbers["two_ranks"] = dp_two_ranks()
+    log(f"[time] phase 18 two ranks {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dp_logging_and_drawing(meshed, tmp)
+    log(f"[time] phase 18 logging and drawing {time.perf_counter() - t:.1f}"
+        f" s")
+    log(f"[18] {json.dumps(numbers)}")
+    return by_path, numbers
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -3938,7 +4178,7 @@ def main(argv=None):
     def done(phase):
         log(f"[time] phase {phase} done at {time.perf_counter() - t0:.1f} s")
 
-    device, _ = phase_device()
+    device, smi = phase_device()
     libs = phase_build(baseline)
     done(2)
     worst = phase_kernels(device)
@@ -3991,6 +4231,11 @@ def main(argv=None):
     by_path.update(phase_image_and_deployment(device))
     log(f"[time] phase 17 in all {time.perf_counter() - t17:.1f} s")
     done(17)
+    t18 = time.perf_counter()
+    dp_paths, dp_numbers = phase_data_parallel(device, smi)
+    by_path.update(dp_paths)
+    log(f"[time] phase 18 in all {time.perf_counter() - t18:.1f} s")
+    done(18)
     kernels = []
     for name, rows in timings.items():
         kernels.append({
@@ -4015,6 +4260,14 @@ def main(argv=None):
             "bound_ms_b8000": label_rows[name]["bound_ms"],
             "launches_by_path": {path: launches[name]
                                  for path, launches in by_path.items()},
+            "data_parallel": {
+                "launches_group_of_one": dp_paths["dp_group_of_one"][name],
+                "all_reduce_calls_per_step":
+                    dp_numbers["all_reduce_calls_per_step"],
+                "nccl_kernels_per_step": dp_numbers["nccl_kernels_per_step"],
+                "step_ms": dp_numbers["step_ms"],
+                "step_all_reduce_ms": dp_numbers["step_all_reduce_ms"],
+            },
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

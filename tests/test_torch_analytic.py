@@ -462,14 +462,32 @@ def test_eval_cli_flies_the_mpc(tiny_bank, capsys, monkeypatch, dynamics):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--animate", "x.gif"], "item 6"), (["--live"], "item 6"),
-    (["--external_sim", "native", "--sweep"], "plain-eval path")])
-def test_eval_cli_refuses_the_unported_flags(flag, match):
-    """``--animate`` and ``--live`` are not ported; ``--external_sim`` is,
-    and refuses a sweep as the JAX script does."""
-    with pytest.raises(SystemExit, match=match):
-        quad_eval.main(["-m", os.path.join(ASSETS, "quad_trained"), "--cpu"]
-                       + flag)
+    pytest.param(["--animate", "x.gif"], "animation saved to x.gif",
+                 id="flag0-item 6"),
+    pytest.param(["--live", "3"], "live replay: 3 frames",
+                 id="flag1-item 6"),
+    pytest.param(["--external_sim", "native", "--sweep"], "plain-eval path",
+                 id="flag2-plain-eval path")])
+def test_eval_cli_refuses_the_unported_flags(flag, match, tiny_bank,
+                                             tmp_path, monkeypatch, capsys):
+    """``--animate`` and ``--live`` were refused until ROADMAP item 6 was
+    ported (the ids keep that name): now they write the GIF and replay the
+    first rollout. ``--external_sim`` refuses a sweep as the JAX script
+    does."""
+    argv = ["-m", os.path.join(ASSETS, "quad_trained"), "-a", "1",
+            "--data_dir", tiny_bank, "--cpu"] + flag
+    if "--sweep" in flag:
+        with pytest.raises(SystemExit, match=match):
+            quad_eval.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    quad_eval.main(argv)
+    assert match in capsys.readouterr().out
+    if "--animate" in flag:
+        from PIL import Image
+
+        with Image.open(tmp_path / "x.gif") as gif:
+            assert gif.n_frames > 1
 
 
 def test_eval_cli_needs_a_card_without_cpu(monkeypatch):

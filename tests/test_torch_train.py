@@ -256,7 +256,7 @@ def test_train_quad_refuses_what_is_not_ported(tiny_bank, monkeypatch):
     with pytest.raises(ValueError, match="train_mode"):
         train_quad.TrainQuad({**cfg, "train_mode": "lstm"},
                              data_dir=tiny_bank, device="cpu")
-    with pytest.raises(NotImplementedError, match="extras"):
+    with pytest.raises(NotImplementedError, match="imports JAX"):
         train_quad.TrainQuad({**cfg, "checkpoint_backend": "orbax"},
                              data_dir=tiny_bank, device="cpu")
     # minjerk_mix is ported: only a share outside [0, 1] is refused
