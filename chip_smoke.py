@@ -181,7 +181,21 @@ Phases, in order; any failure exits non-zero:
      ``performance.png``, and the quad eval CLI runs ``--animate`` and
      ``--live`` on the card, where tensorboard and matplotlib are
      installed (the phase prints which step did not run where one is
-     absent).
+     absent);
+  19. the four measuring modules (``apg_trajectory_tracking_tpu_torch/
+     perf``), each with its launch counts set to 0 just before it and
+     read just after, each printing its table and its JSON on a line of
+     its own: ``perf.latency`` at ``--n 20``, B = 1 and 1024 (the
+     swing-up row timed once, after one warm call: a decision takes
+     seconds), every Adam row exactly 50 launches of each kernel per
+     decision and every other row none; ``perf.ab`` at B = 4096, 10
+     steps per call, 3 rounds of 2 calls (its loss agreement must hold:
+     ``base`` and ``halfsplit`` on the kernels, one and two launches of
+     each per step); ``perf.layout`` at B = 4096, 16384 and 65536, 5
+     steps per call, 2 calls (its parity check must hold; one launch of
+     each kernel per AoS step); ``perf.scaling`` at D = 1 (the card
+     count), 4096 rows per card, 5 steps per epoch (its rank's launches
+     reported by the worker process, one of each per step).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -465,6 +479,16 @@ DEPLOY_ASSETS = ("quad_trained", "quad_lstm_trained", "wing_trained",
 NATIVE_ACT_ATOL = 1e-5
 EXTERNAL_REFS = 4
 EXTERNAL_DIV_ATOL = 1e-3
+# phase 19: the measuring modules cut in depth (their defaults: latency
+# --n 100, ab 50 steps x 5 rounds x 4 calls, layout 20-50 steps x 4-6
+# calls, scaling 20 steps per epoch)
+PERF_LATENCY_N = 20
+PERF_BATCH = 1024
+PERF_AB_B = 4096
+PERF_AB_ITERS = 10
+PERF_LAYOUT_ITERS = 5
+PERF_SCALING_ITERS = 5
+PERF_BATCH_PER_CARD = 4096
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
@@ -4090,6 +4114,96 @@ def phase_data_parallel(device, smi):
     return by_path, numbers
 
 
+def check_launches_per_step(tag, payload_rows, want):
+    """Each (label, launches per step {fwd, bwd}) of a module's report
+    against ``want(label) -> expected launches of each kernel``."""
+    for label, per_step in payload_rows:
+        expected = want(label)
+        if per_step != {"fwd": expected, "bwd": expected}:
+            raise AssertionError(f"{tag} {label}: {per_step} rollout "
+                                 f"launches per step, expected {expected} "
+                                 f"of each")
+
+
+def measured_leg(tag, fn, expected):
+    """Run one measuring module with the launch counts set to 0 just
+    before and read just after, its JSON on a line of its own ->
+    (its payload, {kernel: launches})."""
+    reset_launches()
+    t = time.perf_counter()
+    payload = fn()
+    launches = read_launches()
+    log(f"[time] phase 19 {tag} {time.perf_counter() - t:.1f} s")
+    log(f"[19] {tag} JSON:")
+    print(json.dumps(payload), flush=True)
+    if launches != {name: expected for name in launches}:
+        raise AssertionError(f"{tag}: {launches} rollout launches, expected "
+                             f"{expected} of each")
+    log(f"[19] {tag} launches {json.dumps(launches)}")
+    return payload, launches
+
+
+def phase_measuring_modules(device):
+    """Phase 19: the four measuring modules on the card, cut in depth ->
+    {path: launches}."""
+    from apg_trajectory_tracking_tpu_torch.perf import (
+        ab,
+        latency,
+        layout,
+        scaling,
+    )
+
+    adam_iters = {label: iters for label, solver, _, iters
+                  in latency.SOLVER_ROWS if solver == "adam"}
+    n = PERF_LATENCY_N
+    # the Adam rows: one of each kernel per iteration, over every call
+    # (5 warm-up calls, n timed at B = 1, max(n // 10, 10) batched)
+    expected = sum(iters * (n + 5 + max(n // 10, 10) + 5)
+                   for iters in adam_iters.values())
+    by_path = {}
+    out, by_path["perf_latency"] = measured_leg(
+        "latency", lambda: latency.main(
+            ["--n", str(n), "--batch", str(PERF_BATCH), "--swingup_n",
+             "1"]), expected)
+    check_launches_per_step(
+        "latency", [(label.rsplit(" @ ", 1)[0],
+                     row["rollout_launches_per_step"])
+                    for label, row in out["latency"].items()],
+        lambda label: adam_iters.get(label, 0))
+
+    it, rounds, repeats = PERF_AB_ITERS, 3, 2
+    # base one launch of each kernel per step, halfsplit two, over the
+    # loss check's call and every timed call
+    _, by_path["perf_ab"] = measured_leg(
+        "ab", lambda: ab.run(PERF_AB_B, it, rounds, repeats, device),
+        3 * it * (1 + rounds * repeats))
+
+    it, repeats = PERF_LAYOUT_ITERS, 2
+    # the parity step, then per batch one warm and `repeats` timed calls
+    _, by_path["perf_layout"] = measured_leg(
+        "layout", lambda: layout.main(
+            ["--iters", str(it), "--repeats", str(repeats)]),
+        1 + len(layout.BATCHES) * it * (1 + repeats))
+
+    it = PERF_SCALING_ITERS
+    rows, _ = measured_leg(
+        "scaling", lambda: scaling.main(
+            ["--per_chip_batch", str(PERF_BATCH_PER_CARD), "--iters",
+             str(it)]), 0)
+    # the rank's own launches, one of each per step: a warm and 3 timed
+    # epochs
+    workers = {"quad_rollout_fwd": sum(r["rollout_launches"]["fwd"]
+                                       for r in rows.values()),
+               "quad_rollout_bwd": sum(r["rollout_launches"]["bwd"]
+                                       for r in rows.values())}
+    want = sum(d * it * (1 + scaling.TIMED_EPOCHS) for d in rows)
+    if workers != {name: want for name in workers}:
+        raise AssertionError(f"scaling workers: {workers} rollout launches, "
+                             f"expected {want} of each")
+    by_path["perf_scaling_workers"] = workers
+    return by_path
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -4236,6 +4350,10 @@ def main(argv=None):
     by_path.update(dp_paths)
     log(f"[time] phase 18 in all {time.perf_counter() - t18:.1f} s")
     done(18)
+    t19 = time.perf_counter()
+    by_path.update(phase_measuring_modules(device))
+    log(f"[time] phase 19 in all {time.perf_counter() - t19:.1f} s")
+    done(19)
     kernels = []
     for name, rows in timings.items():
         kernels.append({

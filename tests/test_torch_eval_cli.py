@@ -8,7 +8,9 @@ The CLIs draw the wing targets and the cartpole swing-up starts from
 The ``-m mpc`` routes run one episode with the solve cut to a few Adam
 iterations on both sides. Tolerances:
   * the net rows: target errors and velocities within 1e-4 relative,
-    steps alive, steps balanced and success rates equal;
+    steps alive, steps balanced and success rates equal; the wing row of
+    ``test_wing_cli_matches_jax`` from a float32 error model instead (see
+    ``WING_EPISODE_RTOL``);
   * the ``-m mpc`` episodes: the wing's target error within 1e-4
     relative, the cartpole's steps balanced equal and its velocity within
     1e-4 relative;
@@ -45,6 +47,15 @@ from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(ROOT, "assets")
 ROW_RTOL = 1e-4
+# A 1000-step closed-loop wing flight carries float32 roundoff: each
+# episode's mean target error in either package lies within 5.0e-5 of a
+# float64 flight of the same episodes (measured on an AVX-512 host: the
+# port 2.4e-5, JAX 5.0e-5), so the two packages' errors lie within 1e-4 of
+# each other, held at 2e-4 of the largest episode's error. The row's mean
+# and std each move by at most the largest per-episode change (the std is
+# 1-Lipschitz in the max norm), so they get the same absolute bound. One
+# wing parameter x 1.001 moves the mean or the std by 36x that or more.
+WING_EPISODE_RTOL = 2e-4
 SWEEP_RTOL = 1e-3
 # Adam iterations per control step of the -m mpc episodes: one for the
 # wing; two for the cartpole, whose one-iteration loop is chaotic under
@@ -140,6 +151,9 @@ def jax_wing_row(J, targets, modified=None):
 
 
 def test_wing_cli_matches_jax(J, capsys):
+    """The CLI's row against the JAX evaluator on the same targets, within
+    ``WING_EPISODE_RTOL``; the port's row on a wing with ``rho`` x 1.001
+    falls outside it."""
     wing_eval.main(["-m", os.path.join(ASSETS, "wing_trained"), "-a", "3",
                     "--cpu"])
     out = capsys.readouterr().out
@@ -148,12 +162,31 @@ def test_wing_cli_matches_jax(J, capsys):
     targets = wing_eval.draw_targets(torch.Generator().manual_seed(42), 3)
     per_ep, alive = jax_wing_row(J, targets.numpy())
     assert m["n"] == 3
-    np.testing.assert_allclose(m["mean_success"], per_ep.mean(),
-                               rtol=ROW_RTOL)
-    np.testing.assert_allclose(m["std_success"], per_ep.std(), rtol=ROW_RTOL)
+    atol = WING_EPISODE_RTOL * per_ep.max()
+
+    def within(row):
+        return (abs(row["mean_success"] - per_ep.mean()) <= atol
+                and abs(row["std_success"] - per_ep.std()) <= atol)
+
+    assert within(m), (m, per_ep, atol)
     # the same steps alive; the port averages them in float32
     np.testing.assert_allclose(m["mean_steps_alive"], alive.mean(),
                                rtol=1e-6)
+
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        DEFAULT_WING_CFG,
+        wing_params,
+    )
+
+    net, cfg = wing_eval.load_wing_controller(
+        os.path.join(ASSETS, "wing_trained"), device="cpu")
+    wrong, _, _ = wing_eval.run_eval(
+        net, wing_params({"rho": DEFAULT_WING_CFG["rho"] * 1.001}), targets,
+        np.asarray(cfg["mean"], np.float32),
+        np.asarray(cfg["std"], np.float32),
+        thresh_div=cfg.get("thresh_div", 10.0), thresh_stable=3.0,
+        horizon=cfg["horizon"], dt=cfg["delta_t"], test_time=True)
+    assert not within(wrong), (wrong, per_ep, atol)
 
 
 def test_wing_cli_sweep(J, monkeypatch, capsys):

@@ -34,6 +34,7 @@ SLICE_MODULES = (
     "envs.external_sim", "utils.export_controller",
     "parallel.mesh", "parallel.multihost_smoke", "utils.debug",
     "utils.plotting", "utils.live_view",
+    "perf.common", "perf.latency", "perf.ab", "perf.layout", "perf.scaling",
 )
 
 
@@ -72,7 +73,7 @@ def test_importing_the_port_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 81
+    assert int(lines["LOADED"]) >= 87
     assert lines["FORBIDDEN"] == "[]"
     assert lines["MISSING"] == "[]"
 
