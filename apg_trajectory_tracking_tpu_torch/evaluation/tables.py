@@ -23,7 +23,8 @@ Three rules keep the JAX package's published records as they are:
     go only into the file ``--readme`` names, never the repo's
     ``README.md``; the block readers take their JSON from the out_dir;
   * the ``bench`` section is refused: it stamped the newest TPU bench
-    record, and the port has no bench yet (ROADMAP.md, item 2);
+    record, and the port's bench (``bench.py`` of this package) writes no
+    record until a benchmark cell wraps it (ROADMAP.md, item 2);
   * the swing-up starts come from ``torch.Generator().manual_seed(42)``
     through ``reset_swingup``, the JAX script's distribution from its own
     seed; the section takes fed starts too.
@@ -131,8 +132,8 @@ SECTIONS = ("quad", "wide", "wall", "speeds", "robustness", "analytic",
             "cartpole", "wing", "models")
 BENCH_REFUSAL = (
     "the bench section stamped the newest BENCH_r*.json, which holds TPU "
-    "numbers; the port has no bench yet (ROADMAP.md, item 2: the port's "
-    "bench), so it is refused"
+    "numbers; the port's bench prints its line but writes no record until "
+    "a benchmark cell wraps it (ROADMAP.md, item 2), so it is refused"
 )
 
 

@@ -9,6 +9,9 @@ and, for BPTT, the backward kernel (``csrc/quad_rollout.cu``). On the CPU
 the plain twin :func:`quad_rollout_reference` runs under torch autograd.
 :func:`quad_rollout_backward_reference` is the backward kernel's math
 written in PyTorch, the oracle for the kernel on the card.
+:func:`rollout_bytes` and :func:`rollout_ops` count the kernels' work for a
+bound, and :func:`benchmark_rollout` times the forward kernel against its
+twin (the counterpart of the JAX function of the same name).
 
 The kernels take the dynamics params as constants and return no gradient
 for them. They stage each block's rows through shared memory in 16-byte
@@ -19,18 +22,28 @@ copy it.
 """
 
 import ctypes
+import time
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_step
+from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
+    quad_params,
+    quad_step,
+)
 from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
 # launches of each kernel since the counter was last set to 0
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 # alignment the kernels need of every tensor's first element
 ALIGN_BYTES = 16
+# float32 operations per row and step of each kernel, counted from
+# csrc/quad_rollout.cu (each sin and cos counted as one operation)
+FWD_OPS_PER_ROW_STEP = 79
+BWD_OPS_PER_ROW_STEP = 146
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -263,6 +276,22 @@ class QuadRollout(torch.autograd.Function):
         return grad_states, grad_actions, None, None
 
 
+def rollout_bytes(batch, k):
+    """(forward, backward) bytes the kernels must move at ``batch`` rows
+    and ``k`` steps: each float32 input read once, each output written
+    once."""
+    fwd = 4 * batch * ((12 + 4 * k) + 12 * k)
+    bwd = 4 * batch * ((12 + 4 * k + 24 * k) + (4 * k + 12))
+    return fwd, bwd
+
+
+def rollout_ops(batch, k):
+    """(forward, backward) float32 operations of the kernels at ``batch``
+    rows and ``k`` steps."""
+    return (FWD_OPS_PER_ROW_STEP * batch * k,
+            BWD_OPS_PER_ROW_STEP * batch * k)
+
+
 def quad_rollout(params, states, actions, dt, remat=False):
     """k-step rollout (B, 12), (B, k, 4) -> (B, k, 12).
 
@@ -276,3 +305,39 @@ def quad_rollout(params, states, actions, dt, remat=False):
     if states.device.type != "cpu":
         raise ValueError(f"unsupported device {states.device}")
     return quad_rollout_reference(params, states, actions, dt, remat=remat)
+
+
+def benchmark_rollout(batch=4096, horizon=10, dt=0.1, iters=100,
+                      device="cuda"):
+    """Seconds per forward rollout of the kernel and of its plain twin on
+    the host clock: one warm call, then ``iters`` calls and one synchronize
+    -> ``{"cuda": s, "reference": s}`` (the JAX function's pallas and scan
+    rows); with ``device="cpu"`` only ``"reference"``. The inputs are the
+    JAX function's: ``RandomState(0)`` states times 0.3, uniform
+    actions."""
+    device = resolve_device(device)
+    params = quad_params(device=device)
+    rng = np.random.RandomState(0)
+    states = torch.from_numpy(
+        rng.randn(batch, 12).astype(np.float32) * 0.3).to(device)
+    actions = torch.from_numpy(
+        rng.rand(batch, horizon, 4).astype(np.float32)).to(device)
+
+    paths = {"reference": lambda: quad_rollout_reference(params, states,
+                                                         actions, dt)}
+    if device.type == "cuda":
+        paths = {"cuda": lambda: quad_rollout_fwd(
+            states, actions, params.kernel_scalars, dt), **paths}
+    results = {}
+    with torch.no_grad():
+        for name, fn in paths.items():
+            fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            results[name] = (time.perf_counter() - t0) / iters
+    return results

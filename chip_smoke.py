@@ -185,7 +185,7 @@ Phases, in order; any failure exits non-zero:
   19. the four measuring modules (``apg_trajectory_tracking_tpu_torch/
      perf``), each with its launch counts set to 0 just before it and
      read just after, each printing its table and its JSON on a line of
-     its own: ``perf.latency`` at ``--n 20``, B = 1 and 1024 (the
+     its own: ``perf.latency`` at ``--n 10``, B = 1 and 1024 (the
      swing-up row timed once, after one warm call: a decision takes
      seconds), every Adam row exactly 50 launches of each kernel per
      decision and every other row none; ``perf.ab`` at B = 4096, 10
@@ -195,7 +195,22 @@ Phases, in order; any failure exits non-zero:
      steps per call, 2 calls (its parity check must hold; one launch of
      each kernel per AoS step); ``perf.scaling`` at D = 1 (the card
      count), 4096 rows per card, 5 steps per epoch (its rank's launches
-     reported by the worker process, one of each per step).
+     reported by the worker process, one of each per step);
+  20. the headline bench and the JAX repo's entry points, each with its
+     launch counts set to 0 just before it and read just after: ``python
+     -m apg_trajectory_tracking_tpu_torch.bench`` at its defaults (B =
+     4096, 16384 and 65536; its JSON line printed after ``[20] bench
+     JSON:``), exactly one launch of each kernel per step and its counts
+     from shapes at B = 4096 equal to the host's; both kernels against
+     their plain twins (phases 3-4's tolerances) and timed beside their
+     bounds and their twins at B = 16384 and 65536, k = 10;
+     ``benchmark_rollout`` at B = 4096 (101 forward launches); ``entry()``
+     on the card against the CPU (one forward launch); and
+     ``dryrun_multichip(1)``, every check of the JAX repo's dry run on an
+     NCCL group of one in a worker process, whose launches it reports
+     (one of each kernel in the concurrent step, 10 in the LSTM step, one
+     per step of the trainer's epoch, none in the fit and the
+     evaluation).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -481,23 +496,27 @@ EXTERNAL_REFS = 4
 EXTERNAL_DIV_ATOL = 1e-3
 # phase 19: the measuring modules cut in depth (their defaults: latency
 # --n 100, ab 50 steps x 5 rounds x 4 calls, layout 20-50 steps x 4-6
-# calls, scaling 20 steps per epoch)
-PERF_LATENCY_N = 20
+# calls, scaling 20 steps per epoch); latency at --n 10 makes room for
+# phase 20
+PERF_LATENCY_N = 10
 PERF_BATCH = 1024
 PERF_AB_B = 4096
 PERF_AB_ITERS = 10
 PERF_LAYOUT_ITERS = 5
 PERF_SCALING_ITERS = 5
 PERF_BATCH_PER_CARD = 4096
+# phase 20: the kernels held against their twins and timed at the bench's
+# two large batches; benchmark_rollout at its defaults; entry() card vs CPU
+BENCH_KERNEL_BATCHES = (16384, 65536)
+ROLLOUT_BENCH_B = 4096
+ROLLOUT_BENCH_ITERS = 100
+ENTRY_ATOL = 1e-5
 
 # H100 SXM peaks at a 700 W limit (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# float32 operations per row and step, counted from csrc/quad_rollout.cu
-# (each sin and cos counted as one operation)
-FWD_OPS_PER_ROW_STEP = 79
-BWD_OPS_PER_ROW_STEP = 146
+KERNELS = ("quad_rollout_fwd", "quad_rollout_bwd")
 PALLAS_CALL = "apg_trajectory_tracking_tpu/ops/pallas_rollout.py:114"
 SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/quad_rollout.cu"
 # rows per block of the kernels (kRows in SOURCE): the empty kernel's grid
@@ -656,6 +675,46 @@ def bound_ms(n_bytes, n_ops):
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = n_ops / PEAK_FP32_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def kernel_bounds(n, k):
+    """{kernel: (bound ms, "bytes" or "operations")} at n rows and k steps,
+    from the kernels' bytes and operations (``ops/rollout.py``)."""
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    return {name: bound_ms(n_bytes, n_ops) for name, n_bytes, n_ops in zip(
+        KERNELS, R.rollout_bytes(n, k), R.rollout_ops(n, k))}
+
+
+def kernel_rows(phase, params, n, seed, device, plain=False):
+    """Each kernel's device time at n rows, k = 10, beside its bound and,
+    with ``plain``, its plain version's time (CUDA events) -> {kernel:
+    row}."""
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    scalars = params.kernel_scalars
+    s, a, g = rollout_inputs(n, seed, device)
+    out = R.quad_rollout_fwd(s, a, scalars, DT)
+    cases = {
+        "quad_rollout_fwd": (
+            lambda: R.quad_rollout_fwd(s, a, scalars, DT),
+            lambda: R.quad_rollout_reference(params, s, a, DT)),
+        "quad_rollout_bwd": (
+            lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
+            lambda: R.quad_rollout_backward_reference(params, s, a, out, g,
+                                                      DT)),
+    }
+    rows = {}
+    for name, (bnd, by) in kernel_bounds(n, HORIZON).items():
+        kernel, plain_fn = cases[name]
+        row = rows[name] = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                            "bound_ms": bnd, "bound_by": by}
+        if plain:
+            row["plain_ms"] = time_cuda(plain_fn)
+        log(f"[{phase}] {name} B={n} k={HORIZON}: kernel device time "
+            f"{row['ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
+            + (f", plain {row['plain_ms']:.5f} ms" if plain else ""))
+    return rows
 
 
 def phase_device():
@@ -1127,19 +1186,17 @@ def phase_timing(device, empty_lib):
         for n in (TRAIN_B, TIMING_B):
             s, a, g = rollout_inputs(n, 1, device, k)
             out = R.quad_rollout_fwd(s, a, scalars, DT)
-            # each input read once, each output written once, float32
-            fwd_bytes = 4 * n * ((12 + 4 * k) + 12 * k)
-            bwd_bytes = 4 * n * ((12 + 4 * k + 24 * k) + (4 * k + 12))
+            bounds = kernel_bounds(n, k)
             cases = (
                 ("quad_rollout_fwd",
                  lambda: R.quad_rollout_fwd(s, a, scalars, DT),
                  lambda: R.quad_rollout_reference(params, s, a, DT),
-                 bound_ms(fwd_bytes, FWD_OPS_PER_ROW_STEP * n * k)),
+                 bounds["quad_rollout_fwd"]),
                 ("quad_rollout_bwd",
                  lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
                  lambda: R.quad_rollout_backward_reference(params, s, a, out,
                                                            g, DT),
-                 bound_ms(bwd_bytes, BWD_OPS_PER_ROW_STEP * n * k)),
+                 bounds["quad_rollout_bwd"]),
             )
             for name, kernel, plain, (bnd, by) in cases:
                 row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
@@ -1348,24 +1405,7 @@ def phase_labelling_solve(device):
             us for name, us in runs if "quad_rollout" in name) / device_us,
     }))
 
-    scalars = params.kernel_scalars
-    s, a, g = rollout_inputs(LABEL_B, 2, device)
-    out = R.quad_rollout_fwd(s, a, scalars, DT)
-    n, k = LABEL_B, HORIZON
-    rows = {}
-    for name, kernel, (bnd, by) in (
-            ("quad_rollout_fwd", lambda: R.quad_rollout_fwd(s, a, scalars,
-                                                            DT),
-             bound_ms(4 * n * ((12 + 4 * k) + 12 * k),
-                      FWD_OPS_PER_ROW_STEP * n * k)),
-            ("quad_rollout_bwd",
-             lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
-             bound_ms(4 * n * ((12 + 28 * k) + (4 * k + 12)),
-                      BWD_OPS_PER_ROW_STEP * n * k))):
-        rows[name] = {"ms": kernel_device_ms(kernel, name + "_kernel"),
-                      "bound_ms": bnd, "bound_by": by}
-        log(f"[11] {name} B={n} k={k}: kernel device time "
-            f"{rows[name]['ms']:.5f} ms, bound {bnd:.6f} ms ({by})")
+    rows = kernel_rows(11, params, LABEL_B, 2, device)
     return launches, rows
 
 
@@ -4204,6 +4244,118 @@ def phase_measuring_modules(device):
     return by_path
 
 
+def check_counts_on_the_host(row, batch):
+    """The bench's counts from shapes at ``batch`` on the card against the
+    same counts of a step on the host's twin: they must be equal."""
+    from apg_trajectory_tracking_tpu_torch import bench
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.perf import ab
+
+    cpu = torch.device("cpu")
+    states, refs = ab.inputs(batch, cpu)
+    host = bench.count_step(ab.control_net(cpu), quad_params(), states, refs)
+    card = (row["flops_per_step"], row["hbm_bytes_per_step"],
+            row["min_bytes_per_step"])
+    if card != host:
+        raise AssertionError(f"bench B={batch}: the card's (flops, bytes, "
+                             f"min bytes) {card} differ from the host's "
+                             f"{host}")
+    log(f"[20] bench B={batch}: counts from shapes equal on card and host")
+
+
+def phase_headline_bench(device, worst):
+    """Phase 20: the headline bench at its defaults, the kernels at its two
+    large batches, ``benchmark_rollout``, ``entry()`` and a dry run on an
+    NCCL group of one -> ({path: launches}, {batch: kernel rows})."""
+    from apg_trajectory_tracking_tpu_torch import bench, entry
+    from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+
+    by_path = {}
+    # per batch: the counted steps (2), a warm window and the timed windows
+    expected = sum(2 + it * (1 + rep) for it, rep in
+                   map(bench.iters_and_repeats, bench.BATCHES))
+    reset_launches()
+    t = time.perf_counter()
+    log("[20] bench JSON:")
+    out = bench.main([])
+    by_path["bench"] = launches = read_launches()
+    log(f"[time] phase 20 bench {time.perf_counter() - t:.1f} s")
+    if launches != {name: expected for name in launches}:
+        raise AssertionError(f"bench: {launches} rollout launches, expected "
+                             f"{expected} of each")
+    if not out["device_kind"].startswith(torch.cuda.get_device_name(0)):
+        raise AssertionError(f"bench: device_kind {out['device_kind']}")
+    for batch, row in out["roofline"].items():
+        if row["rollout_launches_per_step"] != {"fwd": 1.0, "bwd": 1.0}:
+            raise AssertionError(f"bench B={batch}: "
+                                 f"{row['rollout_launches_per_step']} "
+                                 f"launches per step, expected 1 of each")
+        if row.get("mfu") is None or not row["time_per_step_ms"] > 0:
+            raise AssertionError(f"bench B={batch}: no time or no roofline "
+                                 f"against the card's peaks: {row}")
+        log(f"[20] bench B={batch}: {row['time_per_step_ms']} ms per step "
+            f"(median {row['median_time_per_step_ms']}), loss "
+            f"{row['first_loss']} first, {row['loss']} last, fp32 bound "
+            f"share {row['fp32_bound_share']:.3g}")
+    check_counts_on_the_host(out["roofline"][str(bench.BATCHES[0])],
+                             bench.BATCHES[0])
+
+    t = time.perf_counter()
+    params = quad_params(device=device)
+    rows = {}
+    for n in BENCH_KERNEL_BATCHES:
+        check_kernels(params, *rollout_inputs(n, 20 + n, device), worst,
+                      f"default B={n} k={HORIZON}")
+        rows[n] = kernel_rows(20, params, n, 20 + n, device, plain=True)
+    log(f"[time] phase 20 kernels {time.perf_counter() - t:.1f} s")
+
+    reset_launches()
+    times = R.benchmark_rollout(batch=ROLLOUT_BENCH_B,
+                                iters=ROLLOUT_BENCH_ITERS)
+    by_path["benchmark_rollout"] = launches = read_launches()
+    want = {"quad_rollout_fwd": 1 + ROLLOUT_BENCH_ITERS,
+            "quad_rollout_bwd": 0}
+    if launches != want or sorted(times) != ["cuda", "reference"]:
+        raise AssertionError(f"benchmark_rollout: {times}, launches "
+                             f"{launches}, expected {want}")
+    log(f"[20] benchmark_rollout B={ROLLOUT_BENCH_B}: " + json.dumps(
+        {name: s * 1e3 for name, s in times.items()}) + " ms per call")
+
+    reset_launches()
+    fn, args = entry.entry()
+    with torch.no_grad():
+        got = fn(*args)
+    by_path["entry"] = launches = read_launches()
+    cpu_fn, (cpu_net, states, refs) = entry.entry("cpu")
+    with torch.no_grad():
+        want_out = cpu_fn(cpu_net, states, refs)
+    err = (got.cpu() - want_out).abs().max().item()
+    if (launches != {"quad_rollout_fwd": 1, "quad_rollout_bwd": 0}
+            or tuple(got.shape) != (8, 12) or not err <= ENTRY_ATOL):
+        raise AssertionError(f"entry: shape {tuple(got.shape)}, launches "
+                             f"{launches}, card vs CPU {err:.2e}")
+    log(f"[20] entry: next state {tuple(got.shape)}, card vs CPU "
+        f"{err:.2e}, launches {json.dumps(launches)}")
+
+    t = time.perf_counter()
+    reset_launches()
+    report = entry.dryrun_multichip(1)
+    here = read_launches()
+    legs = report["launches"]
+    steps = report["epoch_steps"]
+    want = {"concurrent": [1, 1], "lstm": [HORIZON, HORIZON],
+            "fit": [0, 0], "evaluate": [0, 0], "epoch": [steps, steps]}
+    if legs != want or any(here.values()):
+        raise AssertionError(f"dry run: rank launches {legs}, expected "
+                             f"{want}; the launcher's own {here}")
+    by_path["dryrun"] = {name: sum(v[i] for v in legs.values())
+                         for i, name in enumerate(KERNELS)}
+    log(f"[20] dry run on an NCCL group of one: {json.dumps(report)}")
+    log(f"[time] phase 20 dry run {time.perf_counter() - t:.1f} s")
+    return by_path, rows
+
+
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
@@ -4354,6 +4506,11 @@ def main(argv=None):
     by_path.update(phase_measuring_modules(device))
     log(f"[time] phase 19 in all {time.perf_counter() - t19:.1f} s")
     done(19)
+    t20 = time.perf_counter()
+    bench_paths, big_rows = phase_headline_bench(device, worst)
+    by_path.update(bench_paths)
+    log(f"[time] phase 20 in all {time.perf_counter() - t20:.1f} s")
+    done(20)
     kernels = []
     for name, rows in timings.items():
         kernels.append({
@@ -4376,6 +4533,9 @@ def main(argv=None):
             "bound_ms_k1_b8": rows[(TRAIN_B, 1)]["bound_ms"],
             "ms_b8000": label_rows[name]["ms"],
             "bound_ms_b8000": label_rows[name]["bound_ms"],
+            **{f"{key}_b{n}": big_rows[n][name][key]
+               for n in BENCH_KERNEL_BATCHES
+               for key in ("ms", "bound_ms", "plain_ms")},
             "launches_by_path": {path: launches[name]
                                  for path, launches in by_path.items()},
             "data_parallel": {
