@@ -247,9 +247,11 @@ def make_quad_rl(dyn_params, prepared_bank, dt=0.1, horizon=10,
     return RLEnv(reset, step, draw_resets, 15 + horizon * 9, 4)
 
 
-def make_quad_rl_mario(dyn_params, prepared_bank, dt=0.1, **kwargs):
+def make_quad_rl_mario(dyn_params, prepared_bank, dt=0.1,
+                       speed_factor=None, **kwargs):
     """The horizon-1 variant: 15 state features + one 9-wide reference
-    row (24 wide); reward and thresholds as in :func:`make_quad_rl`."""
+    row (24 wide); reward and thresholds as in :func:`make_quad_rl`.
+    ``speed_factor`` is accepted and ignored, as in the JAX package."""
     return make_quad_rl(dyn_params, prepared_bank, dt=dt, horizon=1,
                         **kwargs)
 

@@ -268,7 +268,7 @@ def dryrun_multichip(n_devices, device="cuda", data_dir=DATA_DIR):
              "--data_dir", data_dir] + (["--cpu"] if cpu else []),
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=workdir)
             for r, log in enumerate(logs)]
-        (outs,) = wait_workers([(procs, logs)], WORKER_TIMEOUT)
+        outs = wait_workers((procs, logs), WORKER_TIMEOUT)
     report = check_reports([json.loads(x) for out in outs
                             for x in re.findall(r"dryrun_report (.+)", out)],
                            n_devices)

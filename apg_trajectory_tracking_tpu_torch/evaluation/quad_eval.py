@@ -173,6 +173,7 @@ def follow_analytic(
     thresh_div=1.0,
     thresh_stable=1.0,
     dyn_step=quad_step,
+    horizon=10,
     max_steps=251,
     dt=0.1,
     net_apply=_feedforward_apply,
@@ -186,7 +187,8 @@ def follow_analytic(
     :func:`follow_trajectories`, every step before the end is valid (no
     ``ref_len``), ``states`` holds the state after each step and the
     actions are always the sigmoid of the net's output. The window
-    functions set the window's length.
+    functions set the window's length: ``horizon`` is accepted and unused,
+    as in the JAX package.
 
     Args:
         ref_window_fn: states (n, 12) -> (n, H, 9) min-jerk windows.

@@ -64,10 +64,10 @@ class ControlNet(nn.Module):
         return self.fc_out(x)
 
 
-def control_net_apply(net, in_state, in_ref):
-    """The functional form of the JAX package: ``net(in_state, in_ref)``
-    -> logits."""
-    return net(in_state, in_ref)
+def control_net_apply(net, state, ref):
+    """The functional form of the JAX package: ``net(state, ref)`` ->
+    logits."""
+    return net(state, ref)
 
 
 def control_net_to_jax(net):

@@ -130,7 +130,7 @@ def run_mesh(args, world, workdir):
                               stdout=log, stderr=subprocess.STDOUT, env=env,
                               cwd=workdir)
              for r, log in enumerate(logs)]
-    (outs,) = wait_workers([(procs, logs)], WORKER_TIMEOUT)
+    outs = wait_workers((procs, logs), WORKER_TIMEOUT)
     return check_reports([json.loads(x) for out in outs
                           for x in re.findall(r"scaling_report (.+)", out)],
                          world)

@@ -214,11 +214,13 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
                          torch.stack(actions, dim=1))
 
 
-def build_recurrent_step(net, optimizer, dt, horizon, lstm=False,
-                         lstm_hidden=8, unroll=None, mesh=None):
+def build_recurrent_step(net, optimizer, dt, horizon, action_dim=4,
+                         lstm=False, lstm_hidden=8, unroll=None, mesh=None):
     """-> ``step(dyn_params, states, refs2h) -> loss``: one SGD step of
     ``optimizer`` on ``net`` in the autoregressive or LSTM mode, the
-    gradients summed over the ranks of ``mesh``."""
+    gradients summed over the ranks of ``mesh``. ``action_dim`` is
+    accepted and unused, as in the JAX package (each inner step's action
+    is the net's whole output)."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)

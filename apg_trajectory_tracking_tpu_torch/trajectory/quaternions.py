@@ -62,3 +62,16 @@ def euler_to_quaternion(roll, pitch, yaw):
         axis=-1,
     )
 
+
+def project_to_line(a, b, p):
+    """Project point(s) p onto the line through a and b in float64
+    (q_funcs.py:6-18); where a == b everywhere, a."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    p = np.asarray(p, dtype=np.float64)
+    ab = b - a
+    denom = np.sum(ab**2, axis=-1, keepdims=True)
+    if np.all(denom == 0):
+        return a
+    t = np.sum((p - a) * ab, axis=-1, keepdims=True) / denom
+    return a + t * ab

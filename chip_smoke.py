@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero:
      (and an empty kernel for the launch floor), one nvcc each, in parallel;
   3. forward kernel vs its plain twin, B in {1, 8, 31, 32, 33, 4096, 4097}
      (whole and ragged tiles of 8 and 32 rows), k in {1, 10, 11, 32}
-     (around the 10-step chunks), default params and a set with drag and a
-     tilted gravity vector, and on aligned views one row into larger
-     tensors;
+     (around the 10-step chunks), and B in {512, 1024, 2048} at k = 10
+     (the multihost legs' batches), default params and a set with drag
+     and a tilted gravity vector, and on aligned views one row into
+     larger tensors;
   4. backward kernel vs the hand-derived plain backward and vs torch
      autograd of the twin, at the same shapes;
   5. shipped controllers, carried across from the JAX npz, flown on the
@@ -177,7 +178,16 @@ Phases, in order; any failure exits non-zero:
      two ranks on the one card through gloo (both ranks report the same
      loss and checksum, within 1e-5 relative of one process; the sharded
      ``run_eval`` at 5 episodes, padded to 6, within 1e-6 of one
-     process); the mesh trainer logs to TensorBoard and writes
+     process); the multihost smoke's ``--bench`` (two gloo ranks on the
+     card, then one process, 16384 rows in minibatches of 4096, 3 timed
+     epochs) and ``--sweep`` (one process, then two ranks, at 4096 rows
+     in minibatches of 1024, 3 timed epochs and 10 timed all-reduces;
+     the kernels are held against their twins at the legs' batches in
+     phases 3-4), each record written to a temporary ``--out``
+     and printed, each worker's launches counted over its timed epochs
+     (one of each kernel per step), every time finite and positive, the
+     repo's ``MULTIHOST_BENCH.json`` unchanged; the mesh trainer logs to
+     TensorBoard and writes
      ``performance.png``, and the quad eval CLI runs ``--animate`` and
      ``--live`` on the card, where tensorboard and matplotlib are
      installed (the phase prints which step did not run where one is
@@ -814,6 +824,10 @@ def phase_kernels(device):
             for k in K_LIST:
                 inputs = rollout_inputs(B, 100 * B + k, device, k)
                 check_kernels(params, *inputs, worst, f"{label} B={B} k={k}")
+        for B in DP_KERNEL_BATCHES:
+            inputs = rollout_inputs(B, 100 * B + HORIZON, device, HORIZON)
+            check_kernels(params, *inputs, worst,
+                          f"{label} B={B} k={HORIZON} (multihost legs)")
         inputs = rollout_inputs(4097, 3, device, 11)
         check_kernels(params, *inputs, worst,
                       f"{label} B=4097 k=11 offset views", view=True)
@@ -3936,6 +3950,19 @@ def phase_image_and_deployment(device):
 DP_EPOCHS = 2
 DP_TRACE_STEPS = 3
 SMOKE_TIMEOUT = 300
+# the multihost smoke's measuring legs, each at 4 steps per epoch: --bench
+# on 16384 rows, and --sweep on one cell of the JAX record's 4096 rows (the
+# default batch of 8 would take 512 steps per epoch)
+DP_BENCH_ARGS = ["--bench", "--nproc", "2", "--backend", "gloo", "--device",
+                 "cuda", "--n_rows", "16384", "--batch_size", "4096"]
+DP_SWEEP_ARGS = ["--sweep", "--sweep_nproc", "2", "--sweep_rows", "4096",
+                 "--time_collectives", "10", "--device", "cuda",
+                 "--batch_size", "1024"]
+DP_STEPS = 4 * 3  # timed steps per worker in each leg
+# the batches those legs give the kernels that B_LIST lacks: the sweep's
+# ranks and single process, the bench's ranks (its single process runs
+# 4096)
+DP_KERNEL_BATCHES = (512, 1024, 2048)
 
 
 def importable(name):
@@ -4087,6 +4114,67 @@ def dp_two_ranks():
     return result
 
 
+def check_measuring_leg(tag, record, text, steps):
+    """A multihost bench or sweep record and its workers' reports: the
+    card named, every time finite and positive, each of the three workers
+    (two ranks, one process) one launch of each kernel per timed step ->
+    the workers' summed launches."""
+    from apg_trajectory_tracking_tpu_torch.parallel import multihost_smoke
+
+    if not record["device"].startswith(torch.cuda.get_device_name(0)):
+        raise AssertionError(f"[18] {tag}: device {record['device']!r}")
+    rows = record["sweep"] if "sweep" in record else [record]
+    for row in rows:
+        times = {k: v for k, v in row.items()
+                 if k.startswith(("epoch_s_", "allreduce_s", "collective_s",
+                                  "rows_per_s", "env_steps_per_s",
+                                  "mechanics_"))}
+        if not all(math.isfinite(v) and v > 0 for v in times.values()):
+            raise AssertionError(f"[18] {tag}: a time is not finite and "
+                                 f"positive: {times}")
+    reports = multihost_smoke.worker_launches(text)
+    if len(reports) != 3 or any(
+            r != {"fwd": steps, "bwd": steps, "steps": steps}
+            for r in reports):
+        raise AssertionError(f"[18] {tag}: worker launches {reports}, "
+                             f"expected {steps} of each kernel in each of 3")
+    log(f"[18] {tag}: each worker {steps} launches of each kernel in "
+        f"{steps} timed steps")
+    return {"quad_rollout_fwd": sum(r["fwd"] for r in reports),
+            "quad_rollout_bwd": sum(r["bwd"] for r in reports)}
+
+
+def dp_bench_and_sweep(tmp):
+    """The multihost smoke's --bench and --sweep on the card, each leg
+    timed, its record printed on a line of its own -> ({"multihost_bench":
+    the workers' summed launches}, {leg: record})."""
+    from apg_trajectory_tracking_tpu_torch.parallel import multihost_smoke
+
+    published = os.path.join(ROOT, "MULTIHOST_BENCH.json")
+    launches = {"quad_rollout_fwd": 0, "quad_rollout_bwd": 0}
+    records = {}
+    for tag, argv in (("bench", DP_BENCH_ARGS), ("sweep", DP_SWEEP_ARGS)):
+        before = tree_digest(published)
+        out = os.path.join(tmp, f"multihost_{tag}.json")
+        t = time.perf_counter()
+        record, text = captured_or_logged(lambda: multihost_smoke.main(
+            argv + ["--out", out, "--timeout", str(SMOKE_TIMEOUT)]))
+        log(f"[time] phase 18 multihost {tag} {time.perf_counter() - t:.1f}"
+            f" s")
+        if tree_digest(published) != before:
+            raise AssertionError(f"[18] {tag} changed {published}")
+        with open(out) as f:
+            if json.load(f) != record:
+                raise AssertionError(f"[18] {tag}: {out} is not the record")
+        log(f"[18] multihost {tag} JSON:")
+        print(json.dumps(record), flush=True)
+        for name, n in check_measuring_leg(tag, record, text,
+                                           DP_STEPS).items():
+            launches[name] += n
+        records[tag] = record
+    return {"multihost_bench": launches}, records
+
+
 def dp_logging_and_drawing(meshed, tmp):
     """TensorBoard and the performance plot of the mesh trainer, and the
     quad eval CLI's --animate and --live on the card, where the optional
@@ -4146,6 +4234,8 @@ def phase_data_parallel(device, smi):
     t = time.perf_counter()
     numbers["two_ranks"] = dp_two_ranks()
     log(f"[time] phase 18 two ranks {time.perf_counter() - t:.1f} s")
+    bench_paths, numbers["multihost"] = dp_bench_and_sweep(tmp)
+    by_path.update(bench_paths)
     t = time.perf_counter()
     dp_logging_and_drawing(meshed, tmp)
     log(f"[time] phase 18 logging and drawing {time.perf_counter() - t:.1f}"

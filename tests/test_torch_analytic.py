@@ -308,6 +308,27 @@ def test_follow_analytic_matches_jax(J, ref):
                                atol=FLIGHT_ATOL)
 
 
+def test_follow_analytic_takes_jax_horizon_keyword(J):
+    """A JAX-style call with ``horizon=10`` flies the same rollout as the
+    JAX function given it (both ignore the value: the window functions set
+    the window's length)."""
+    jw, jp = _jax_analytic(J, "straight")
+    want = J.quad_eval.follow_analytic(
+        _jax_net(J, "quad_minjerk_trained"), J.quad.quad_params(), jw, jp,
+        J.jnp.asarray(STATES[:2]), horizon=H, max_steps=FLIGHT_STEPS)
+    net, cfg = quad_eval.load_quad_controller(
+        os.path.join(ASSETS, "quad_minjerk_trained"), device="cpu")
+    _, tw, tp = quad_eval.analytic_setup("straight", cfg, 2, "cpu", H)
+    got = quad_eval.follow_analytic(net, quad_params(), tw, tp,
+                                    _t(STATES[:2]), horizon=H,
+                                    max_steps=FLIGHT_STEPS)
+    np.testing.assert_array_equal(got["valid"].numpy(),
+                                  np.asarray(want["valid"]))
+    np.testing.assert_allclose(got["states"].numpy(),
+                               np.asarray(want["states"]), rtol=0,
+                               atol=FLIGHT_ATOL)
+
+
 def test_follow_analytic_threads_the_lstm_carry_as_jax(J):
     jw, jp = _jax_analytic(J, "hover")
     want = J.quad_eval.follow_analytic(

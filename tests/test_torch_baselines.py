@@ -164,6 +164,38 @@ def test_env_reset_step_and_auto_reset_match_jax(J, name):
     assert 0 < n_done < n * steps
 
 
+def test_quad_h1_env_takes_jax_speed_factor(J):
+    """``make_quad_rl_mario(..., speed_factor=...)`` builds the env the JAX
+    function builds with it (both ignore the value): the same reset and
+    step on the same draws."""
+    jax = J.jax
+    j_reset, j_step, obs_dim, _ = J.envs.make_quad_rl_mario(
+        J.quad.quad_params(), J.jnp.asarray(BANK), speed_factor=0.4)
+    env = rl_envs.make_quad_rl_mario(quad_params(), BANK, speed_factor=0.4,
+                                     device=CPU)
+    assert env.obs_dim == obs_dim == 24
+
+    def draw(k):
+        return jax.random.randint(k, (), 0, BANK.shape[0])
+
+    keys = jax.random.split(jax.random.PRNGKey(5), 4)
+    js, jobs = jax.vmap(j_reset)(keys)
+    ts, tobs = env.reset(_draws(J, draw, keys))
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), rtol=ENV_TOL,
+                               atol=ENV_TOL)
+    action = np.random.RandomState(6).uniform(-1, 1, (4, 4)).astype(
+        np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(7), 4)
+    js, jobs, jrew, _ = jax.vmap(j_step)(js, J.jnp.asarray(action), keys)
+    ts, tobs, trew, _ = env.step(ts, torch.from_numpy(action),
+                                 _draws(J, draw, keys))
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), rtol=ENV_TOL,
+                               atol=ENV_TOL)
+    np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), rtol=ENV_TOL,
+                               atol=ENV_TOL)
+    _assert_env_state(js, ts)
+
+
 def test_quad_mario_reward_squares_the_sum():
     """The env's mario reward squares each group's summed error: errors of
     opposite sign cancel."""

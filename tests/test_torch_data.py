@@ -23,6 +23,7 @@ from apg_trajectory_tracking_tpu.envs.quad_env import (
 from apg_trajectory_tracking_tpu.evaluation import stats as jstats
 from apg_trajectory_tracking_tpu.losses import quad_mpc_loss as j_loss
 from apg_trajectory_tracking_tpu.trajectory import generate as jgen
+from apg_trajectory_tracking_tpu.trajectory import quaternions as jquat
 from apg_trajectory_tracking_tpu.trajectory.refs import (
     array_ref_window as j_window,
 )
@@ -33,6 +34,7 @@ from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
 from apg_trajectory_tracking_tpu_torch.evaluation import stats as tstats
 from apg_trajectory_tracking_tpu_torch.losses import quad_mpc_loss as t_loss
 from apg_trajectory_tracking_tpu_torch.trajectory import generate as tgen
+from apg_trajectory_tracking_tpu_torch.trajectory import quaternions as tquat
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import (
     array_ref_window as t_window,
 )
@@ -143,6 +145,22 @@ def test_full_state_training_data_matches_jax(tiny_bank):
                         dt=0.1, speed_factor=0.5)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["points", "a_equals_b"])
+def test_numpy_project_to_line_matches_jax(case):
+    """The float64 numpy projection of the trajectory tools, exactly; where
+    a == b everywhere both return a."""
+    rng = np.random.RandomState(8)
+    a, b, p = rng.randn(3, 6, 3)
+    if case == "a_equals_b":
+        b = a.copy()
+    got = tquat.project_to_line(a, b, p)
+    want = jquat.project_to_line(a, b, p)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    if case == "a_equals_b":
+        np.testing.assert_array_equal(got, a)
 
 
 @pytest.mark.parametrize("ind", [0, 7, 45, 55, 60])

@@ -19,6 +19,7 @@ from apg_trajectory_tracking_tpu.models import (
 from apg_trajectory_tracking_tpu.utils.checkpoints import _flatten
 from apg_trajectory_tracking_tpu_torch.models.mlp import (
     ControlNet,
+    control_net_apply as t_control_net_apply,
     control_net_from_jax,
     control_net_to_jax,
 )
@@ -61,6 +62,20 @@ def test_control_net_logits_match_jax(source):
         got = net(torch.from_numpy(state), torch.from_numpy(ref)).numpy()
     want = np.asarray(control_net_apply(_jax_params(flat, hidden), state,
                                         ref))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_control_net_apply_takes_jax_keywords():
+    """``control_net_apply(net, state=..., ref=...)``, JAX's keywords, on
+    the shipped weights."""
+    flat = _shipped()
+    state, ref = _features(seed=1)
+    with torch.no_grad():
+        got = t_control_net_apply(control_net_from_jax(flat, "cpu"),
+                                  state=torch.from_numpy(state),
+                                  ref=torch.from_numpy(ref)).numpy()
+    want = np.asarray(control_net_apply(_jax_params(flat, 64), state=state,
+                                        ref=ref))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 

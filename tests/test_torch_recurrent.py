@@ -221,6 +221,28 @@ def test_recurrent_step_takes_an_sgd_step():
     assert any(not np.array_equal(moved[k], flat[k]) for k in flat)
 
 
+@pytest.mark.parametrize("mode", ["autoregressive", "LSTM"])
+def test_recurrent_step_takes_jax_positional_action_dim(mode):
+    """Built with JAX's positional ``action_dim`` (4, ignored on both
+    sides, as ``TrainQuad`` passes it), the step's loss is JAX's."""
+    lstm = mode == "LSTM"
+    template = _jax_lstm(2) if lstm else _jax_ar(2)
+    flat, _ = _flatten(template)
+    states, refs = _batch(8, seed=6)
+    step = jax.jit(j_build_recurrent_step(quad_step, j_sgd(1e-4), 0.1, 10,
+                                          4, lstm=lstm, lstm_hidden=8))
+    params = _unflatten(template, flat)
+    _, _, j_loss = step(params, j_sgd(1e-4).init(params), j_quad_params(),
+                        states, refs)
+    net = (lstm_net_from_jax if lstm else control_net_from_jax)(flat, "cpu")
+    t_step = train_quad.build_recurrent_step(
+        net, sgd_momentum(net.parameters(), 1e-4), 0.1, 10, 4, lstm=lstm,
+        lstm_hidden=8)
+    loss = t_step(quad_params(), torch.from_numpy(states),
+                  torch.from_numpy(refs))
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+
+
 def _eval_refs(bank_dir, n, speed):
     bank = load_trajectory_bank(bank_dir, test=True)
     refs = np.stack([prepare_trajectory(bank[i % len(bank)], 0.1, speed)
