@@ -98,6 +98,7 @@ from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     resume_name,
     save_train_state,
 )
+from apg_trajectory_tracking_tpu_torch.utils.debug import span
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 from apg_trajectory_tracking_tpu_torch.utils.logging import ResultsLogger
 
@@ -138,17 +139,23 @@ def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
     once and the dynamics unroll them from the drone-centric state, by
     default in one fused :func:`quad_rollout`; ``unroll(dyn_params, states,
     actions, dt) -> (B, k, 12)`` replaces it (a learnt model's unroll, for
-    instance)."""
-    in_state, current_state, in_ref, rel_ref = quad_prepare_data(states, refs)
-    action_seq = torch.sigmoid(net(in_state, in_ref)).reshape(
-        -1, horizon, action_dim
-    )
-    if unroll is None:
-        inter = quad_rollout(dyn_params, current_state, action_seq, dt,
-                             remat=remat)
-    else:
-        inter = unroll(dyn_params, current_state, action_seq, dt)
-    return quad_mpc_loss(inter, rel_ref, action_seq)
+    instance). Spans (``utils/debug.span``): ``featurize``, ``net``,
+    ``unroll``, ``loss``."""
+    with span("featurize"):
+        in_state, current_state, in_ref, rel_ref = quad_prepare_data(
+            states, refs)
+    with span("net"):
+        action_seq = torch.sigmoid(net(in_state, in_ref)).reshape(
+            -1, horizon, action_dim
+        )
+    with span("unroll"):
+        if unroll is None:
+            inter = quad_rollout(dyn_params, current_state, action_seq, dt,
+                                 remat=remat)
+        else:
+            inter = unroll(dyn_params, current_state, action_seq, dt)
+    with span("loss"):
+        return quad_mpc_loss(inter, rel_ref, action_seq)
 
 
 def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
@@ -158,16 +165,26 @@ def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
     the backward pass on the CPU twin; the kernel path keeps only the
     rollout's outputs and recomputes nothing. ``unroll``: see
     :func:`concurrent_loss`. ``mesh``: the gradients are summed over its
-    ranks before the optimizer step (:func:`all_reduce_grads`)."""
+    ranks before the optimizer step (:func:`all_reduce_grads`).
+
+    Spans: ``train_step`` around the step, holding ``forward`` (with
+    :func:`concurrent_loss`'s), ``backward``, ``all_reduce`` (with a mesh)
+    and ``optimizer``."""
 
     def step(dyn_params, states, refs):
-        optimizer.zero_grad(set_to_none=True)
-        loss = concurrent_loss(net, dyn_params, states, refs, dt, horizon,
-                               action_dim, remat, unroll)
-        loss.backward()
-        all_reduce_grads(mesh, net)
-        optimizer.step()
-        return loss.detach()
+        with span("train_step"):
+            optimizer.zero_grad(set_to_none=True)
+            with span("forward"):
+                loss = concurrent_loss(net, dyn_params, states, refs, dt,
+                                       horizon, action_dim, remat, unroll)
+            with span("backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("all_reduce"):
+                    all_reduce_grads(mesh, net)
+            with span("optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 
@@ -555,12 +572,19 @@ class TrainQuad:
         return loss
 
     def fit(self, nr_epochs=None, nr_test=10, verbose=True):
+        """Spans: ``epoch`` around each epoch, holding ``evaluate``,
+        ``curriculum``, ``resample`` and ``step_loop`` (the steps)."""
         nr_epochs = nr_epochs or self.config["nr_epochs"]
         for epoch in range(nr_epochs):
-            metrics = self.evaluate(epoch, nr_test=nr_test)
-            self._speed_curriculum(epoch)
-            self._resample(epoch)
-            loss = self.run_epoch()
+            with span("epoch"):
+                with span("evaluate"):
+                    metrics = self.evaluate(epoch, nr_test=nr_test)
+                with span("curriculum"):
+                    self._speed_curriculum(epoch)
+                with span("resample"):
+                    self._resample(epoch)
+                with span("step_loop"):
+                    loss = self.run_epoch()
             if verbose:
                 print(
                     f"Epoch {epoch}: loss {loss:.1f} "

@@ -5,11 +5,18 @@
     mode;
   * :func:`trace` profiles a block with ``torch.profiler`` and writes a
     Chrome trace, with the card's kernels when the card is in use;
+  * :func:`span` marks a phase of the program; spans are on while a
+    ``torch.profiler`` window records (they show in its trace as
+    ``apg::<name>``) or after :func:`enable`, and are kept in memory
+    (:func:`spans`, :func:`clear`);
   * :class:`Timer`: wall-clock and throughput counters.
 """
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 
 import torch
@@ -43,6 +50,79 @@ def trace(log_dir="torch-trace"):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+SPAN_PREFIX = "apg::"
+RING = 100_000
+
+# (name, id, parent id or None, thread, start_ns, end_ns); the stamps are
+# time.time_ns(), the clock of the profiler's events
+SpanRecord = collections.namedtuple(
+    "SpanRecord", "name id parent thread start_ns end_ns")
+
+_enabled = False
+_records = collections.deque(maxlen=RING)
+_ids = itertools.count(1)
+_open = threading.local()  # each thread's stack of open span ids
+_OFF = contextlib.nullcontext()  # what span() returns while spans are off
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "start", "annotation")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        stack.append(self.id)
+        self.start = time.time_ns()
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(
+                SPAN_PREFIX + self.name)
+            self.annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        end = time.time_ns()
+        _open.stack.pop()
+        _records.append(SpanRecord(self.name, self.id, self.parent,
+                                   threading.get_ident(), self.start, end))
+        return False
+
+
+def span(name):
+    """A context manager that records the block as the span ``name``,
+    nested in the span open around it on this thread. Off (no profiler
+    recording, no :func:`enable`) it is one shared object that does
+    nothing."""
+    if not (_enabled or torch.autograd._profiler_enabled()):
+        return _OFF
+    return _Span(name)
+
+
+def enable(on=True):
+    """Record spans in memory also with no profiler running."""
+    global _enabled
+    _enabled = bool(on)
+
+
+def spans():
+    """The recorded spans, oldest first (the last :data:`RING` of them),
+    as :class:`SpanRecord`."""
+    return list(_records)
+
+
+def clear():
+    """Forget the recorded spans."""
+    _records.clear()
 
 
 class Timer:

@@ -1,0 +1,9 @@
+"""The share of the traced window in which the device was idle while the
+host was in autograd's backward of the step: the idle time that overlaps
+the program's ``backward`` spans, over the window."""
+
+from port_bench import program_spans
+
+
+def read(ctx):
+    return program_spans.idle_pct(ctx, "backward")
