@@ -1,7 +1,7 @@
 """What the measuring modules share: the device and its label, host-clock
 timing of calls that each end in a synchronize, and the rollout kernels'
-launch counters read as differences (a caller's own count from 0 goes
-on)."""
+launch counters and the graphed train steps' counters, read as
+differences (a caller's own count from 0 goes on)."""
 
 import os
 import subprocess
@@ -10,6 +10,7 @@ import time
 import torch
 
 from apg_trajectory_tracking_tpu_torch.ops import rollout
+from apg_trajectory_tracking_tpu_torch.training import common
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
 # the checkout's root: the shipped assets and the trajectory bank lie there
@@ -49,6 +50,13 @@ def sync(device):
 def launches():
     """(forward, backward) rollout-kernel launches so far."""
     return rollout.FORWARD_LAUNCHES, rollout.BACKWARD_LAUNCHES
+
+
+def graph_steps():
+    """(eager, captured, replayed) calls of the train steps that may run
+    from a CUDA graph (``training.common.GraphedStep``) so far. The call
+    that captures also replays: the steps taken are eager + replayed."""
+    return common.EAGER_STEPS, common.CAPTURES, common.REPLAYS
 
 
 def timed_call(fn, device):

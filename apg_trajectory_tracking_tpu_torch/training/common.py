@@ -1,6 +1,7 @@
 """Shared training machinery: optimizers, minibatch shuffling, config
-loading (counterpart of the JAX package's ``training/common.py``) and the
-train CLIs' shared flags."""
+loading (counterpart of the JAX package's ``training/common.py``), the
+train CLIs' shared flags and :class:`GraphedStep`, which replays a train
+step from a CUDA graph."""
 
 import dataclasses
 import json
@@ -9,10 +10,12 @@ import os
 import numpy as np
 import torch
 
+from apg_trajectory_tracking_tpu_torch.ops import rollout
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
     init_distributed,
     make_mesh,
 )
+from apg_trajectory_tracking_tpu_torch.utils.debug import span
 
 CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -21,6 +24,12 @@ CONFIG_DIR = os.path.join(
 )
 # optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# calls of every GraphedStep so far, by route: run eagerly, captured into a
+# graph, replayed from one. The call that captures also replays, so the
+# steps taken are EAGER_STEPS + REPLAYS.
+EAGER_STEPS = 0
+CAPTURES = 0
+REPLAYS = 0
 
 
 def sgd_momentum(params, lr):
@@ -122,3 +131,109 @@ def infra_mesh(args):
 
 def print_mesh(mesh):
     print(f"mesh: {mesh.shape} over {mesh.size} device(s)")
+
+
+class GraphedStep:
+    """A train step ``step(*args) -> loss`` replayed from a CUDA graph where
+    it can be, else run as it is.
+
+    ``step`` (kept as :attr:`eager`) zeroes the gradients, runs forward and
+    backward and takes one step of ``optimizer``. The graph is used when
+    ``graphable`` (False where the step does host work, such as a
+    collective) and every tensor argument is a CUDA tensor. It is keyed
+    on the tensor arguments' shapes, dtypes and devices, the identity of
+    every other argument (a ``QuadParams``, whose ``kernel_scalars`` the
+    rollout's launches bake in), the addresses of the optimizer's
+    parameters and state tensors, and each param group's hyperparameters;
+    constants of the step's closure (``dt``) are fixed per step. A call
+    with a key not seen on the last call runs eagerly, which creates the
+    optimizer's state, reads the kernel scalars and warms cuBLAS and cuDNN
+    outside any graph, and remembers its key; the next call with that key
+    captures the step and replays it, later ones replay. A new key frees
+    the graph. Each call copies the tensor arguments into the graph's
+    inputs and returns a fresh tensor.
+
+    A replay adds the rollout launches seen at capture to the counters of
+    ``ops/rollout.py``, so they count one forward and one backward launch
+    per step on both routes. Spans: ``train_step`` around every call,
+    holding the step's own spans on an eager call; ``capture`` (holding
+    them) and ``replay`` on the call that captures; ``replay`` alone after.
+    """
+
+    def __init__(self, step, optimizer, graphable=True):
+        self.eager = step
+        self.optimizer = optimizer
+        self.graphable = graphable
+        self._key = None  # the last eager call's, else None
+        self._held = ()  # its non-tensor arguments, so their ids stay theirs
+        self._free()
+
+    def __call__(self, *args):
+        global EAGER_STEPS, REPLAYS
+        with span("train_step"):
+            key = self._key_of(args)
+            if key is None or key != self._key:
+                self._free()
+                loss = self.eager(*args)
+                EAGER_STEPS += 1
+                # after the step, whose first call creates the optimizer's
+                # state
+                self._key = self._key_of(args)
+                self._held = [a for a in args if not torch.is_tensor(a)]
+                return loss
+            if self._graph is None:
+                with span("capture"):
+                    self._capture(args)
+            else:
+                f, b = self._launches
+                rollout.FORWARD_LAUNCHES += f
+                rollout.BACKWARD_LAUNCHES += b
+            with span("replay"):
+                tensors = (a for a in args if torch.is_tensor(a))
+                for static, a in zip(self._inputs, tensors):
+                    static.copy_(a)
+                self._graph.replay()
+            REPLAYS += 1
+            return self._loss.clone()
+
+    def _key_of(self, args):
+        """The graph's key for ``args``, or None where no graph is used."""
+        tensors = [a for a in args if torch.is_tensor(a)]
+        if not (self.graphable and tensors and all(t.is_cuda
+                                                   for t in tensors)):
+            return None
+        inputs = tuple((tuple(a.shape), a.dtype, a.device)
+                       if torch.is_tensor(a) else id(a) for a in args)
+        groups = []
+        for group in self.optimizer.param_groups:
+            hyper = tuple(sorted((k, v) for k, v in group.items()
+                                 if k != "params"))
+            params = tuple(
+                (p.data_ptr(),) + tuple(
+                    v.data_ptr()
+                    for v in self.optimizer.state.get(p, {}).values()
+                    if torch.is_tensor(v))
+                for p in group["params"])
+            groups.append((hyper, params))
+        return inputs, tuple(groups)
+
+    def _capture(self, args):
+        global CAPTURES
+        self._inputs = [a.clone() for a in args if torch.is_tensor(a)]
+        inputs = iter(self._inputs)
+        static = [next(inputs) if torch.is_tensor(a) else a for a in args]
+        f0, b0 = rollout.FORWARD_LAUNCHES, rollout.BACKWARD_LAUNCHES
+        # the backward writes fresh gradients from the graph's pool
+        self.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._loss = self.eager(*static)
+        self._graph = graph
+        self._launches = (rollout.FORWARD_LAUNCHES - f0,
+                          rollout.BACKWARD_LAUNCHES - b0)
+        CAPTURES += 1
+
+    def _free(self):
+        self._graph = self._loss = None
+        self._inputs = ()
+        self._launches = (0, 0)

@@ -84,6 +84,7 @@ from apg_trajectory_tracking_tpu_torch.trajectory.minjerk import (
 )
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import _to_state_rows
 from apg_trajectory_tracking_tpu_torch.training.common import (
+    GraphedStep,
     add_infra_args,
     infra_mesh,
     load_config,
@@ -167,26 +168,32 @@ def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
     :func:`concurrent_loss`. ``mesh``: the gradients are summed over its
     ranks before the optimizer step (:func:`all_reduce_grads`).
 
-    Spans: ``train_step`` around the step, holding ``forward`` (with
-    :func:`concurrent_loss`'s), ``backward``, ``all_reduce`` (with a mesh)
-    and ``optimizer``."""
+    The step is a :class:`GraphedStep`: on CUDA inputs, on the rollout
+    kernels (``unroll`` None) and with no collective to run, its second
+    call with the same inputs' shapes, ``dyn_params`` and optimizer
+    captures it in a CUDA graph and later calls replay it; every other call
+    runs it eagerly (``.eager``). Spans: ``train_step`` around every call,
+    holding ``forward`` (with :func:`concurrent_loss`'s), ``backward``,
+    ``all_reduce`` (with a mesh) and ``optimizer`` where the step runs
+    eagerly or is captured, and ``replay`` where it is replayed."""
 
     def step(dyn_params, states, refs):
-        with span("train_step"):
-            optimizer.zero_grad(set_to_none=True)
-            with span("forward"):
-                loss = concurrent_loss(net, dyn_params, states, refs, dt,
-                                       horizon, action_dim, remat, unroll)
-            with span("backward"):
-                loss.backward()
-            if mesh is not None:
-                with span("all_reduce"):
-                    all_reduce_grads(mesh, net)
-            with span("optimizer"):
-                optimizer.step()
-            return loss.detach()
+        optimizer.zero_grad(set_to_none=True)
+        with span("forward"):
+            loss = concurrent_loss(net, dyn_params, states, refs, dt,
+                                   horizon, action_dim, remat, unroll)
+        with span("backward"):
+            loss.backward()
+        if mesh is not None:
+            with span("all_reduce"):
+                all_reduce_grads(mesh, net)
+        with span("optimizer"):
+            optimizer.step()
+        return loss.detach()
 
-    return step
+    collective = mesh is not None and mesh.collective
+    return GraphedStep(step, optimizer,
+                       graphable=unroll is None and not collective)
 
 
 def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
