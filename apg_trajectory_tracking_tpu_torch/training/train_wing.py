@@ -8,7 +8,8 @@ autograd, scores the unroll against the 12 m/s ramp toward the target with
 almost all self-play: before epoch 0, eval flights fill the self-play
 ring. Around the steps, :class:`TrainWing` runs the thresh_div and
 thresh_stable curricula and keeps the checkpoint with the lowest test-time
-target error.
+target error. On the card the step is replayed from one CUDA graph
+(:func:`build_wing_step`).
 
 Run it with::
 
@@ -53,6 +54,7 @@ from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
     replicate,
 )
 from apg_trajectory_tracking_tpu_torch.training.common import (
+    GraphedStep,
     add_infra_args,
     infra_mesh,
     load_config,
@@ -67,6 +69,7 @@ from apg_trajectory_tracking_tpu_torch.utils.checkpoints import (
     resume_name,
     save_train_state,
 )
+from apg_trajectory_tracking_tpu_torch.utils.debug import span
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 from apg_trajectory_tracking_tpu_torch.utils.logging import ResultsLogger
 
@@ -75,36 +78,60 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
               horizon, dyn_step=wing_step):
     """Loss of one wing batch: the net emits all k actions at once and
     ``dyn_step`` (the wing, or a learnt model of it) unrolls them from the
-    batch's states."""
-    normed, current_state, rel_ref, target_pos = wing_prepare_data(
-        states, ref_pos, mean, std, dt=dt, horizon=horizon
-    )
-    action_seq = torch.sigmoid(net(normed, rel_ref)).reshape(-1, horizon, 4)
-    inter = []
-    state = current_state
-    for t in range(horizon):
-        state = dyn_step(dyn_params, state, action_seq[:, t], dt_train)
-        inter.append(state)
-    return fixed_wing_mpc_loss(torch.stack(inter, dim=1), target_pos,
-                               action_seq)
+    batch's states. Spans (``utils/debug.span``): ``featurize``, ``net``,
+    ``unroll``, ``loss``."""
+    with span("featurize"):
+        normed, current_state, rel_ref, target_pos = wing_prepare_data(
+            states, ref_pos, mean, std, dt=dt, horizon=horizon
+        )
+    with span("net"):
+        action_seq = torch.sigmoid(net(normed, rel_ref)).reshape(
+            -1, horizon, 4)
+    with span("unroll"):
+        inter = []
+        state = current_state
+        for t in range(horizon):
+            state = dyn_step(dyn_params, state, action_seq[:, t], dt_train)
+            inter.append(state)
+    with span("loss"):
+        return fixed_wing_mpc_loss(torch.stack(inter, dim=1), target_pos,
+                                   action_seq)
 
 
 def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,
                     dyn_step=wing_step, mesh=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
     ``optimizer`` on ``net``, the gradients summed over the ranks of
-    ``mesh``; ``mean``/``std`` are tensors on the net's device."""
+    ``mesh``; ``mean``/``std`` are tensors on the net's device.
+
+    The step is a :class:`GraphedStep`: on CUDA inputs, with the analytic
+    :func:`wing_step` (a learnt model changes between steps) and no
+    collective to run, its second call with the same inputs' shapes,
+    ``dyn_params`` and optimizer captures the whole eager unroll in one
+    CUDA graph and later calls replay it; every other call runs it eagerly
+    (``.eager``). Spans as in ``train_quad.build_concurrent_step``:
+    ``train_step`` around every call, holding ``forward`` (with
+    :func:`wing_loss`'s), ``backward``, ``all_reduce`` (with a mesh) and
+    ``optimizer`` where the step runs eagerly or is captured, and
+    ``replay`` where it is replayed."""
 
     def step(dyn_params, states, refs):
         optimizer.zero_grad(set_to_none=True)
-        loss = wing_loss(net, dyn_params, states, refs, mean, std, dt_train,
-                         dt, horizon, dyn_step)
-        loss.backward()
-        all_reduce_grads(mesh, net)
-        optimizer.step()
+        with span("forward"):
+            loss = wing_loss(net, dyn_params, states, refs, mean, std,
+                             dt_train, dt, horizon, dyn_step)
+        with span("backward"):
+            loss.backward()
+        if mesh is not None:
+            with span("all_reduce"):
+                all_reduce_grads(mesh, net)
+        with span("optimizer"):
+            optimizer.step()
         return loss.detach()
 
-    return step
+    collective = mesh is not None and mesh.collective
+    return GraphedStep(step, optimizer,
+                       graphable=dyn_step is wing_step and not collective)
 
 
 class TrainWing:
@@ -233,12 +260,14 @@ class TrainWing:
         # the JAX trainer logs the test error under this key
         self.logger.log("mean_divergence", test_metrics["mean_success"])
 
-        # curricula
-        cfg = self.config
-        if epoch % 5 == 0 and self.thresh_div < cfg["thresh_div_end"]:
-            self.thresh_div += 0.2
-        if epoch % 5 == 0 and self.thresh_stable < cfg["thresh_stable_end"]:
-            self.thresh_stable += 0.05
+        # curricula, before the checkpoint, which saves the thresholds
+        with span("curriculum"):
+            cfg = self.config
+            if epoch % 5 == 0 and self.thresh_div < cfg["thresh_div_end"]:
+                self.thresh_div += 0.2
+            if (epoch % 5 == 0
+                    and self.thresh_stable < cfg["thresh_stable_end"]):
+                self.thresh_stable += 0.05
 
         if epoch > 0 and test_metrics["mean_success"] < self.best_score:
             self.best_score = test_metrics["mean_success"]
@@ -259,10 +288,17 @@ class TrainWing:
         return loss
 
     def fit(self, nr_epochs=None, nr_test=10, verbose=True):
+        """Spans: ``epoch`` around each epoch, holding ``evaluate`` (which
+        holds ``curriculum``: the thresholds move before the checkpoint
+        choice that saves them) and ``step_loop`` (the steps). The wing
+        trainer resamples nothing, so there is no ``resample`` span."""
         nr_epochs = nr_epochs or self.config["nr_epochs"]
         for epoch in range(nr_epochs):
-            metrics = self.evaluate(epoch, nr_test=nr_test)
-            loss = self.run_epoch()
+            with span("epoch"):
+                with span("evaluate"):
+                    metrics = self.evaluate(epoch, nr_test=nr_test)
+                with span("step_loop"):
+                    loss = self.run_epoch()
             if verbose:
                 print(
                     f"Epoch {epoch}: loss {loss:.1f} "
