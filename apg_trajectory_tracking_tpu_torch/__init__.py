@@ -9,8 +9,9 @@ present; the CPU runs only when the caller asks for it.
 
 The fused k-step quadrotor rollout (``ops/rollout.py``) runs on the card as
 two hand-written CUDA kernels (``csrc/quad_rollout.cu``): a forward pass and
-a backward pass for BPTT. On the CPU the same function runs as a plain
-PyTorch loop under autograd.
+a backward pass for BPTT. The fixed wing's unroll in its train step
+(``ops/wing_rollout.py``) does the same with ``csrc/wing_rollout.cu``. On
+the CPU each runs as a plain PyTorch loop under autograd.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """What the measuring modules share: the device and its label, host-clock
-timing of calls that each end in a synchronize, and the rollout kernels'
-launch counters and the graphed train steps' counters, read as
-differences (a caller's own count from 0 goes on)."""
+timing of calls that each end in a synchronize, and the quad and wing
+rollout kernels' launch counters and the graphed train steps' counters,
+read as differences (a caller's own count from 0 goes on)."""
 
 import os
 import subprocess
@@ -9,7 +9,7 @@ import time
 
 import torch
 
-from apg_trajectory_tracking_tpu_torch.ops import rollout
+from apg_trajectory_tracking_tpu_torch.ops import rollout, wing_rollout
 from apg_trajectory_tracking_tpu_torch.training import common
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
@@ -50,6 +50,11 @@ def sync(device):
 def launches():
     """(forward, backward) rollout-kernel launches so far."""
     return rollout.FORWARD_LAUNCHES, rollout.BACKWARD_LAUNCHES
+
+
+def wing_launches():
+    """(forward, backward) wing rollout-kernel launches so far."""
+    return wing_rollout.FORWARD_LAUNCHES, wing_rollout.BACKWARD_LAUNCHES
 
 
 def graph_steps():

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import torch
 
-from apg_trajectory_tracking_tpu_torch.ops import rollout
+from apg_trajectory_tracking_tpu_torch.ops import rollout, wing_rollout
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
     init_distributed,
     make_mesh,
@@ -30,6 +30,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 EAGER_STEPS = 0
 CAPTURES = 0
 REPLAYS = 0
+# the kernel modules whose FORWARD_LAUNCHES and BACKWARD_LAUNCHES count the
+# launches a captured step replays
+_COUNTED = (rollout, wing_rollout)
 
 
 def sgd_momentum(params, lr):
@@ -133,6 +136,10 @@ def print_mesh(mesh):
     print(f"mesh: {mesh.shape} over {mesh.size} device(s)")
 
 
+def _launch_counts():
+    return [(m.FORWARD_LAUNCHES, m.BACKWARD_LAUNCHES) for m in _COUNTED]
+
+
 class GraphedStep:
     """A train step ``step(*args) -> loss`` replayed from a CUDA graph where
     it can be, else run as it is.
@@ -154,10 +161,11 @@ class GraphedStep:
     inputs and returns a fresh tensor.
 
     A replay adds the rollout launches seen at capture to the counters of
-    ``ops/rollout.py``, so they count one forward and one backward launch
-    per step on both routes. Spans: ``train_step`` around every call,
-    holding the step's own spans on an eager call; ``capture`` (holding
-    them) and ``replay`` on the call that captures; ``replay`` alone after.
+    ``ops/rollout.py`` and ``ops/wing_rollout.py``, so they count one
+    forward and one backward launch per step on both routes. Spans:
+    ``train_step`` around every call, holding the step's own spans on an
+    eager call; ``capture`` (holding them) and ``replay`` on the call that
+    captures; ``replay`` alone after.
     """
 
     def __init__(self, step, optimizer, graphable=True):
@@ -185,9 +193,9 @@ class GraphedStep:
                 with span("capture"):
                     self._capture(args)
             else:
-                f, b = self._launches
-                rollout.FORWARD_LAUNCHES += f
-                rollout.BACKWARD_LAUNCHES += b
+                for module, (f, b) in zip(_COUNTED, self._launches):
+                    module.FORWARD_LAUNCHES += f
+                    module.BACKWARD_LAUNCHES += b
             with span("replay"):
                 tensors = (a for a in args if torch.is_tensor(a))
                 for static, a in zip(self._inputs, tensors):
@@ -222,18 +230,18 @@ class GraphedStep:
         self._inputs = [a.clone() for a in args if torch.is_tensor(a)]
         inputs = iter(self._inputs)
         static = [next(inputs) if torch.is_tensor(a) else a for a in args]
-        f0, b0 = rollout.FORWARD_LAUNCHES, rollout.BACKWARD_LAUNCHES
+        before = _launch_counts()
         # the backward writes fresh gradients from the graph's pool
         self.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._loss = self.eager(*static)
         self._graph = graph
-        self._launches = (rollout.FORWARD_LAUNCHES - f0,
-                          rollout.BACKWARD_LAUNCHES - b0)
+        self._launches = [(f - f0, b - b0) for (f, b), (f0, b0)
+                          in zip(_launch_counts(), before)]
         CAPTURES += 1
 
     def _free(self):
         self._graph = self._loss = None
         self._inputs = ()
-        self._launches = (0, 0)
+        self._launches = ()

@@ -2,8 +2,9 @@
 ``training/train_wing.py``).
 
 A train step featurizes a (state, target) batch, runs the dense controller
-once for all k actions, unrolls :func:`wing_step` for k steps under
-autograd, scores the unroll against the 12 m/s ramp toward the target with
+once for all k actions, unrolls :func:`wing_step` for k steps (on the card
+in the two fused kernels of ``ops/wing_rollout.py``, on the host under
+autograd), scores the unroll against the 12 m/s ramp toward the target with
 :func:`fixed_wing_mpc_loss` and takes an SGD-momentum step. The data are
 almost all self-play: before epoch 0, eval flights fill the self-play
 ring. Around the steps, :class:`TrainWing` runs the thresh_div and
@@ -39,12 +40,14 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
     wing_params,
     wing_step,
 )
+from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
 from apg_trajectory_tracking_tpu_torch.envs.wing_env import (
     sample_training_data,
 )
 from apg_trajectory_tracking_tpu_torch.evaluation.wing_eval import run_eval
 from apg_trajectory_tracking_tpu_torch.losses import fixed_wing_mpc_loss
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.ops.wing_rollout import wing_rollout
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     auto_mesh,
@@ -78,8 +81,11 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
               horizon, dyn_step=wing_step):
     """Loss of one wing batch: the net emits all k actions at once and
     ``dyn_step`` (the wing, or a learnt model of it) unrolls them from the
-    batch's states. Spans (``utils/debug.span``): ``featurize``, ``net``,
-    ``unroll``, ``loss``."""
+    batch's states. The analytic :func:`wing_step` unrolls through
+    :func:`ops.wing_rollout.wing_rollout`: on the card its two fused
+    kernels, on the host the same step loop as any other ``dyn_step``.
+    Spans (``utils/debug.span``): ``featurize``, ``net``, ``unroll``,
+    ``loss``."""
     with span("featurize"):
         normed, current_state, rel_ref, target_pos = wing_prepare_data(
             states, ref_pos, mean, std, dt=dt, horizon=horizon
@@ -88,14 +94,14 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
         action_seq = torch.sigmoid(net(normed, rel_ref)).reshape(
             -1, horizon, 4)
     with span("unroll"):
-        inter = []
-        state = current_state
-        for t in range(horizon):
-            state = dyn_step(dyn_params, state, action_seq[:, t], dt_train)
-            inter.append(state)
+        if dyn_step is wing_step:
+            inter = wing_rollout(dyn_params, current_state, action_seq,
+                                 dt_train)
+        else:
+            inter = step_rollout(dyn_step, dyn_params, current_state,
+                                 action_seq, dt_train)
     with span("loss"):
-        return fixed_wing_mpc_loss(torch.stack(inter, dim=1), target_pos,
-                                   action_seq)
+        return fixed_wing_mpc_loss(inter, target_pos, action_seq)
 
 
 def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,

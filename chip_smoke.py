@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero:
      and a tilted gravity vector, and on aligned views one row into
      larger tensors;
   4. backward kernel vs the hand-derived plain backward and vs torch
-     autograd of the twin, at the same shapes;
+     autograd of the twin, at the same shapes; then the wing's two
+     kernels (``csrc/wing_rollout.cu``) the same way, B in {1, 8, 33,
+     4096, 4097}, k in {1, 10, 11}, default params and a mismatched lift
+     slope (CL_alpha 3.0), a third of the rows beyond the alpha clamp,
+     and on aligned views;
   5. shipped controllers, carried across from the JAX npz, flown on the
      card and on the CPU: ``assets/quad_trained_9k``,
      ``assets/quad_ar_trained`` and ``assets/quad_lstm_trained`` (a
@@ -28,12 +32,15 @@ Phases, in order; any failure exits non-zero:
      the autoregressive and LSTM modes (horizon launches of each kernel
      per step, at k = 1), and ``TrainWing`` from
      ``configs/wing_config.json`` with 500 of its 2000 self-play rows for
-     1 epoch (no rollout kernel); each
-     with a finite loss and a checkpoint that reloads bit-equal;
+     1 epoch (one launch of each wing kernel per step, none of the
+     quad's); each with a finite loss and a checkpoint that reloads
+     bit-equal;
   7. timings: the concurrent, autoregressive, LSTM and wing train steps
-     at B = 8 (the shipped configs' batch) and B = 4096, and each kernel
-     at B = 8 and 4096 with k = 10 and k = 1, beside its bound, its plain
-     twin (k = 10) and the device time of an empty kernel;
+     at B = 8 (the shipped configs' batch) and B = 4096 (the wing's first
+     call launching one of each wing kernel), and each kernel, quad and
+     wing, at B = 8 and 4096 with k = 10 and k = 1, beside its bound, its
+     plain twin (k = 10; the quad's at B = 4096) and the device time of an
+     empty kernel;
   8. only with ``--baseline OLD.cu``: another source with the same C
      interface, such as an earlier revision of ``csrc/quad_rollout.cu``,
      built and checked against the plain versions, then timed with the
@@ -252,6 +259,8 @@ sys.path.insert(0, ROOT)
 B_LIST = (1, 8, 31, 32, 33, 4096, 4097)
 K_LIST = (1, 10, 11, 32)
 HORIZON = 10
+# the wing's train-step Euler step (configs/wing_config.json delta_t_train)
+WING_DT = 0.05
 DT = 0.1
 TIMING_B = 4096
 TRAIN_B = 8  # the batch of configs/quad_config.json
@@ -527,8 +536,17 @@ ENTRY_ATOL = 1e-5
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 KERNELS = ("quad_rollout_fwd", "quad_rollout_bwd")
+WING_KERNELS = ("wing_rollout_fwd", "wing_rollout_bwd")
 PALLAS_CALL = "apg_trajectory_tracking_tpu/ops/pallas_rollout.py:114"
 SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/quad_rollout.cu"
+WING_SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/wing_rollout.cu"
+# the wing kernels against their plain versions: every batch and horizon,
+# the default params and a mismatched lift slope
+WING_B_LIST = (1, 8, 33, 4096, 4097)
+WING_K_LIST = (1, 10, 11)
+WING_MISMATCH = {"CL_alpha": 3.0}
+# |roll| and |pitch| of the wing's stable envelope (wing_is_stable)
+WING_ENVELOPE = 0.7
 # rows per block of the kernels (kRows in SOURCE): the empty kernel's grid
 TILE_ROWS = 8
 EMPTY_KERNEL_SOURCE = r"""
@@ -687,13 +705,62 @@ def bound_ms(n_bytes, n_ops):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def kernel_bounds(n, k):
+def kernel_bounds(n, k, wing=False):
     """{kernel: (bound ms, "bytes" or "operations")} at n rows and k steps,
-    from the kernels' bytes and operations (``ops/rollout.py``)."""
+    from the kernels' bytes and operations (``ops/rollout.py``, with
+    ``wing`` ``ops/wing_rollout.py``)."""
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
 
+    names, counts = ((WING_KERNELS, (W.wing_rollout_bytes, W.wing_rollout_ops))
+                     if wing else (KERNELS, (R.rollout_bytes, R.rollout_ops)))
     return {name: bound_ms(n_bytes, n_ops) for name, n_bytes, n_ops in zip(
-        KERNELS, R.rollout_bytes(n, k), R.rollout_ops(n, k))}
+        names, counts[0](n, k), counts[1](n, k))}
+
+
+def wing_inputs(B, seed, device, k=HORIZON):
+    """Wing rollout inputs: states near level flight at 11.5 m/s with every
+    third row's angle of attack beyond the clamp, roll and pitch inside
+    the envelope the wing flies in (``wing_is_stable``'s 0.7 rad), uniform
+    actions and a Gaussian output gradient. A pitch that reaches 90 degrees
+    within the k steps makes tan and sec of theta unbounded, and there any
+    two float32 computations of the same step part by more than the
+    forward tolerance: a row that started at 66 degrees of pitch put the
+    float32 twin itself 2.6e-4 from the float64 twin."""
+    rng = np.random.RandomState(seed)
+    states = rng.randn(B, 12).astype(np.float32) * 0.3
+    states[:, 3] += 11.5
+    states[::3, 5] += 4.0
+    states[:, 6:8] = np.clip(states[:, 6:8], -WING_ENVELOPE, WING_ENVELOPE)
+    actions = rng.rand(B, k, 4).astype(np.float32)
+    grad_out = rng.randn(B, k, 12).astype(np.float32)
+    return tuple(torch.tensor(x, device=device)
+                 for x in (states, actions, grad_out))
+
+
+def rollout_kit(params, wing=False):
+    """(kernel names, forward kernel, backward kernel, plain forward twin,
+    plain backward) of the quad's rollout or, with ``wing``, the wing's,
+    each on (states, actions[, states_out, grad_out])."""
+    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
+
+    if wing:
+        packed = W.pack_wing_params(params)
+        return (WING_KERNELS,
+                lambda s, a: W.wing_rollout_fwd(s, a, packed, WING_DT),
+                lambda s, a, o, g: W.wing_rollout_bwd(s, a, packed, o, g,
+                                                      WING_DT),
+                lambda s, a: W.wing_rollout_reference(params, s, a, WING_DT),
+                lambda s, a, o, g: W.wing_rollout_backward_reference(
+                    params, s, a, o, g, WING_DT))
+    scalars = params.kernel_scalars
+    return (KERNELS,
+            lambda s, a: R.quad_rollout_fwd(s, a, scalars, DT),
+            lambda s, a, o, g: R.quad_rollout_bwd(s, a, o, g, scalars, DT),
+            lambda s, a: R.quad_rollout_reference(params, s, a, DT),
+            lambda s, a, o, g: R.quad_rollout_backward_reference(
+                params, s, a, o, g, DT))
 
 
 def kernel_rows(phase, params, n, seed, device, plain=False):
@@ -756,7 +823,8 @@ def phase_build(baseline=None):
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     empty_src = cuda_lib.BUILD_DIR / "empty_kernel.cu"
     empty_src.write_text(EMPTY_KERNEL_SOURCE)
-    sources = {"quad_rollout": None, "empty_kernel": empty_src}
+    sources = {"quad_rollout": None, "wing_rollout": None,
+               "empty_kernel": empty_src}
     if baseline:
         sources["quad_rollout_baseline"] = baseline
     t0 = time.perf_counter()
@@ -773,38 +841,34 @@ def phase_build(baseline=None):
     return {name: path for name, (path, _) in built.items()}
 
 
-def check_kernels(params, states, actions, grad_out, worst, tag, view=False):
-    """Run both kernel wrappers and hold them against the plain forward
-    twin, the hand-derived plain backward and torch autograd of the twin.
-    With ``view`` the kernels get each tensor as ``big[1:]`` of a tensor
-    one row longer, and the plain versions the fresh tensors."""
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
-
+def check_kernels(params, states, actions, grad_out, worst, tag, view=False,
+                  wing=False):
+    """Run both kernel wrappers (the quad's, with ``wing`` the wing's) and
+    hold them against the plain forward twin, the hand-derived plain
+    backward and torch autograd of the twin. With ``view`` the kernels get
+    each tensor as ``big[1:]`` of a tensor one row longer, and the plain
+    versions the fresh tensors."""
+    (fwd_name, bwd_name), fwd, bwd, twin, plain_bwd = rollout_kit(params,
+                                                                  wing)
     place = one_row_in if view else (lambda x: x)
-    scalars = params.kernel_scalars
-    out = R.quad_rollout_fwd(place(states), place(actions), scalars, DT)
-    ga, gs = R.quad_rollout_bwd(place(states), place(actions), place(out),
-                                place(grad_out), scalars, DT)
-    ref = R.quad_rollout_reference(params, states, actions, DT)
-    ga_ref, gs_ref = R.quad_rollout_backward_reference(
-        params, states, actions, out, grad_out, DT
-    )
+    out = fwd(place(states), place(actions))
+    ga, gs = bwd(place(states), place(actions), place(out), place(grad_out))
+    ref = twin(states, actions)
+    ga_ref, gs_ref = plain_bwd(states, actions, out, grad_out)
     s_ag = states.clone().requires_grad_()
     a_ag = actions.clone().requires_grad_()
-    ga_ag, gs_ag = torch.autograd.grad(
-        R.quad_rollout_reference(params, s_ag, a_ag, DT), (a_ag, s_ag),
-        grad_out,
-    )
+    ga_ag, gs_ag = torch.autograd.grad(twin(s_ag, a_ag), (a_ag, s_ag),
+                                       grad_out)
     torch.cuda.synchronize()
     f_abs, f_rel = max_errs(out, ref)
-    worst["quad_rollout_fwd"] = max(worst["quad_rollout_fwd"], f_abs)
+    worst[fwd_name] = max(worst[fwd_name], f_abs)
     checks = [(out, ref, ATOL)]
     parts = []
     for name, got, plain, auto in (("grad_actions", ga, ga_ref, ga_ag),
                                    ("grad_states0", gs, gs_ref, gs_ag)):
         atol = BWD_ATOL_REL * plain.abs().max().item()
         e_plain, e_auto = max_errs(got, plain)[0], max_errs(got, auto)[0]
-        worst["quad_rollout_bwd"] = max(worst["quad_rollout_bwd"], e_plain)
+        worst[bwd_name] = max(worst[bwd_name], e_plain)
         parts.append(f"{name} abs {e_plain:.2e} (vs autograd {e_auto:.2e}, "
                      f"atol {atol:.1e})")
         checks += [(got, plain, atol), (got, auto, atol)]
@@ -815,9 +879,12 @@ def check_kernels(params, states, actions, grad_out, worst, tag, view=False):
 
 
 def phase_kernels(device):
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 
-    worst = {"quad_rollout_fwd": 0.0, "quad_rollout_bwd": 0.0}
+    worst = dict.fromkeys(KERNELS + WING_KERNELS, 0.0)
     for label, mods in (("default", {}), ("drag+gravity", DRAG_PARAMS)):
         params = quad_params(mods, device)
         for B in B_LIST:
@@ -831,6 +898,17 @@ def phase_kernels(device):
         inputs = rollout_inputs(4097, 3, device, 11)
         check_kernels(params, *inputs, worst,
                       f"{label} B=4097 k=11 offset views", view=True)
+    for label, mods in (("default", {}), ("CL_alpha 3.0", WING_MISMATCH)):
+        params = wing_params(mods, device)
+        for B in WING_B_LIST:
+            for k in WING_K_LIST:
+                inputs = wing_inputs(B, 100 * B + k, device, k)
+                check_kernels(params, *inputs, worst,
+                              f"wing {label} B={B} k={k}", wing=True)
+        inputs = wing_inputs(4097, 3, device, 11)
+        check_kernels(params, *inputs, worst,
+                      f"wing {label} B=4097 k=11 offset views", view=True,
+                      wing=True)
     return worst
 
 
@@ -974,17 +1052,28 @@ def phase_carried_wing(device):
 
 def reset_launches():
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
 
-    R.FORWARD_LAUNCHES = 0
-    R.BACKWARD_LAUNCHES = 0
+    for module in (R, W):
+        module.FORWARD_LAUNCHES = 0
+        module.BACKWARD_LAUNCHES = 0
 
 
 def read_launches():
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
 
     torch.cuda.synchronize()
     return {"quad_rollout_fwd": R.FORWARD_LAUNCHES,
-            "quad_rollout_bwd": R.BACKWARD_LAUNCHES}
+            "quad_rollout_bwd": R.BACKWARD_LAUNCHES,
+            "wing_rollout_fwd": W.FORWARD_LAUNCHES,
+            "wing_rollout_bwd": W.BACKWARD_LAUNCHES}
+
+
+def launch_counts(**counts):
+    """{kernel: launches} as ``read_launches`` reads them: ``counts`` by
+    kernel, every other kernel 0."""
+    return {**dict.fromkeys(KERNELS + WING_KERNELS, 0), **counts}
 
 
 def check_checkpoint(tag, trainer, name, device):
@@ -1042,7 +1131,12 @@ def phase_training(device):
         trainer.fit(epochs, verbose=False)
         launches = read_launches()
         by_path[path] = launches
-        per_step = {"concurrent": 1, "wing": 0}.get(path, trainer.horizon)
+        # the wing's step unrolls in the wing kernels, the quad's in the
+        # quad kernels (k = 1 launches a step in the recurrent modes)
+        names = WING_KERNELS if path == "wing" else KERNELS
+        per_step = {"concurrent": 1, "wing": 1}.get(path, trainer.horizon)
+        want = launch_counts(**dict.fromkeys(
+            names, per_step * trainer.steps_taken))
         log(f"[6] {path}: {epochs} epoch(s) in "
             f"{time.perf_counter() - t0:.1f} s; train steps "
             f"{trainer.steps_taken}; launches {launches}; epoch times "
@@ -1050,13 +1144,12 @@ def phase_training(device):
         loss = trainer.logger.results["loss"][-1]
         if not math.isfinite(loss):
             raise AssertionError(f"{path}: loss {loss} is not finite")
-        for name, n in launches.items():
-            if n != per_step * trainer.steps_taken or (per_step and n == 0):
-                raise AssertionError(
-                    f"{path}: {name} launched {n} times in "
-                    f"{trainer.steps_taken} steps, expected {per_step} per "
-                    f"step"
-                )
+        if launches != want or not trainer.steps_taken:
+            raise AssertionError(
+                f"{path}: launched {launches} in {trainer.steps_taken} "
+                f"steps, expected {want} ({per_step} of each of {names} per "
+                f"step)"
+            )
         name = "model_wing_final" if path == "wing" else "model_quad_final"
         check_checkpoint(path, trainer, name, device)
         log(f"[6] {path}: final loss {loss:.3f}; checkpoint reloads "
@@ -1162,8 +1255,10 @@ def train_step_cases(device, batch):
 
 
 def phase_timing(device, empty_lib):
+    from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
+        wing_params,
+    )
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
 
     # loaded and launched once before any profiler session, as the
     # rollout library is
@@ -1172,6 +1267,15 @@ def phase_timing(device, empty_lib):
         cases, plain_step = train_step_cases(device, n)
         for path, step in cases.items():
             timed, profiled = STEP_RUNS[path]
+            if path == "wing":
+                # its first call runs eagerly, on the wing kernels
+                reset_launches()
+                step()
+                launches = read_launches()
+                want = launch_counts(**dict.fromkeys(WING_KERNELS, 1))
+                if launches != want:
+                    raise AssertionError(f"[7] wing step B={n}: launched "
+                                         f"{launches}, expected {want}")
             step_ms = time_host(step, runs=timed, warmup=2)
             runs, wall_us = profile_kernels(step, runs=profiled, warmup=2)
             device_us = sum(us for _, us in runs)
@@ -1183,7 +1287,7 @@ def phase_timing(device, empty_lib):
                 "kernels_per_step": len(runs) / profiled,
                 "device_busy_share": device_us / wall_us,
                 "rollout_kernels_share_of_device_time": sum(
-                    us for name, us in runs if "quad_rollout" in name
+                    us for name, us in runs if "_rollout_" in name
                 ) / device_us,
             }
             if path == "concurrent" and n == TIMING_B:
@@ -1193,37 +1297,36 @@ def phase_timing(device, empty_lib):
                        "plain_twin_step_ms": time_host(plain_step)}
             log(f"[7] train step: {json.dumps(row)}")
 
-    params = quad_params(device=device)
-    scalars = params.kernel_scalars
-    timings = {"quad_rollout_fwd": {}, "quad_rollout_bwd": {}}
-    for k in (HORIZON, 1):
-        for n in (TRAIN_B, TIMING_B):
-            s, a, g = rollout_inputs(n, 1, device, k)
-            out = R.quad_rollout_fwd(s, a, scalars, DT)
-            bounds = kernel_bounds(n, k)
-            cases = (
-                ("quad_rollout_fwd",
-                 lambda: R.quad_rollout_fwd(s, a, scalars, DT),
-                 lambda: R.quad_rollout_reference(params, s, a, DT),
-                 bounds["quad_rollout_fwd"]),
-                ("quad_rollout_bwd",
-                 lambda: R.quad_rollout_bwd(s, a, out, g, scalars, DT),
-                 lambda: R.quad_rollout_backward_reference(params, s, a, out,
-                                                           g, DT),
-                 bounds["quad_rollout_bwd"]),
-            )
-            for name, kernel, plain, (bnd, by) in cases:
-                row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
-                       "call_ms": time_cuda(kernel), "bound_ms": bnd,
-                       "bound_by": by}
-                if n == TIMING_B and k == HORIZON:
-                    row["plain_ms"] = time_cuda(plain)
-                timings[name][(n, k)] = row
-                log(f"[7] {name} B={n} k={k}: kernel device time "
-                    f"{row['ms']:.5f} ms, per call with launch "
-                    f"{row['call_ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
-                    + (f", plain twin {row['plain_ms']:.5f} ms"
-                       if "plain_ms" in row else ""))
+    timings = {name: {} for name in KERNELS + WING_KERNELS}
+    for wing in (False, True):
+        params = (wing_params if wing else quad_params)(device=device)
+        names, fwd, bwd, twin, plain_bwd = rollout_kit(params, wing)
+        for k in (HORIZON, 1):
+            for n in (TRAIN_B, TIMING_B):
+                s, a, g = (wing_inputs if wing else rollout_inputs)(
+                    n, 1, device, k)
+                out = fwd(s, a)
+                bounds = kernel_bounds(n, k, wing)
+                cases = (
+                    (names[0], lambda: fwd(s, a), lambda: twin(s, a)),
+                    (names[1], lambda: bwd(s, a, out, g),
+                     lambda: plain_bwd(s, a, out, g)),
+                )
+                for name, kernel, plain in cases:
+                    bnd, by = bounds[name]
+                    row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                           "call_ms": time_cuda(kernel), "bound_ms": bnd,
+                           "bound_by": by}
+                    # the plain versions at k = 10: the quad's at its
+                    # timing batch, the wing's at its train batch too
+                    if k == HORIZON and (n == TIMING_B or wing):
+                        row["plain_ms"] = time_cuda(plain)
+                    timings[name][(n, k)] = row
+                    log(f"[7] {name} B={n} k={k}: kernel device time "
+                        f"{row['ms']:.5f} ms, per call with launch "
+                        f"{row['call_ms']:.5f} ms, bound {bnd:.6f} ms ({by})"
+                        + (f", plain twin {row['plain_ms']:.5f} ms"
+                           if "plain_ms" in row else ""))
     floors = {n: kernel_device_ms(functools.partial(empty_launch, n),
                                   "empty_kernel")
               for n in (TRAIN_B, TIMING_B)}
@@ -1384,8 +1487,8 @@ def phase_labelling_solve(device):
     reset_launches()
     u_k, _, c_k = solve(params, x0, ref, z0)
     launches = read_launches()
-    if launches != {"quad_rollout_fwd": MPC_ITERS,
-                    "quad_rollout_bwd": MPC_ITERS}:
+    if launches != launch_counts(quad_rollout_fwd=MPC_ITERS,
+                                 quad_rollout_bwd=MPC_ITERS):
         raise AssertionError(f"labelling solve launched {launches}, "
                              f"expected {MPC_ITERS} of each kernel")
     u_p, _, c_p = twin(params, x0, ref, z0)
@@ -1628,8 +1731,7 @@ def count_legs(trainer, names):
     {"calls", "s", kernel: launches}}, summed over the calls."""
     legs = {}
     for name in names:
-        leg = legs[name] = {"calls": 0, "s": 0.0, "quad_rollout_fwd": 0,
-                            "quad_rollout_bwd": 0}
+        leg = legs[name] = {"calls": 0, "s": 0.0, **launch_counts()}
 
         def wrapped(*args, _fn=getattr(trainer, name), _leg=leg, **kwargs):
             reset_launches()
@@ -1913,7 +2015,7 @@ def counted(fn):
 def check_path_launches(tag, launches, forward):
     """The path launched the forward kernel ``forward`` times and the
     backward kernel never."""
-    want = {"quad_rollout_fwd": forward, "quad_rollout_bwd": 0}
+    want = launch_counts(quad_rollout_fwd=forward)
     if launches != want:
         raise AssertionError(f"{tag}: launched {launches}, expected {want}")
 
@@ -2434,7 +2536,8 @@ def check_loop_card_vs_cpu(tag, card, cpu, atol=MPC_CARD_ATOL):
 
 
 def check_launches(tag, launches, per_kernel):
-    want = {"quad_rollout_fwd": per_kernel, "quad_rollout_bwd": per_kernel}
+    want = launch_counts(quad_rollout_fwd=per_kernel,
+                         quad_rollout_bwd=per_kernel)
     if launches != want:
         raise AssertionError(f"{tag}: launched {launches}, expected {want}")
 
@@ -2592,7 +2695,7 @@ def phase_analytic(device):
     from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
     from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
 
-    total = {"quad_rollout_fwd": 0, "quad_rollout_bwd": 0}
+    total = launch_counts()
     for name in ANALYTIC_ASSETS:
         path = os.path.join(ROOT, "assets", name)
         for ref in ANALYTIC_REFS:
@@ -3344,8 +3447,7 @@ def phase_adapt_protocol(device, tmp):
     bank = os.path.join(ROOT, "data", "traj_data")
     out_path = os.path.join(tmp, "robustness_adapt.json")
     real = TrainQuadAdapt.run_controller_epoch_learnt
-    leg = {"calls": 0, "steps": 0, "quad_rollout_fwd": 0,
-           "quad_rollout_bwd": 0}
+    leg = {"calls": 0, "steps": 0, **launch_counts()}
 
     def counted_epoch(self, idx=None):
         reset_launches()
@@ -4019,10 +4121,10 @@ def dp_trainers(device, tmp):
             f"{time.perf_counter() - t0:.1f} s; steps "
             f"{trainer.steps_taken}; launches {launches}; mesh "
             f"{trainer.mesh}")
-        for name, n in launches.items():
-            if n != trainer.steps_taken or n == 0:
-                raise AssertionError(f"[18] {path}: {name} launched {n} "
-                                     f"times in {trainer.steps_taken} steps")
+        want = launch_counts(**dict.fromkeys(KERNELS, trainer.steps_taken))
+        if launches != want or not trainer.steps_taken:
+            raise AssertionError(f"[18] {path}: launched {launches} in "
+                                 f"{trainer.steps_taken} steps")
         trainers[path] = trainer
     plain, meshed = trainers["dp_plain"], trainers["dp_group_of_one"]
     for key in ("loss", "mean_success", "mean_divergence"):
@@ -4266,9 +4368,9 @@ def measured_leg(tag, fn, expected):
     log(f"[time] phase 19 {tag} {time.perf_counter() - t:.1f} s")
     log(f"[19] {tag} JSON:")
     print(json.dumps(payload), flush=True)
-    if launches != {name: expected for name in launches}:
+    if launches != launch_counts(**dict.fromkeys(KERNELS, expected)):
         raise AssertionError(f"{tag}: {launches} rollout launches, expected "
-                             f"{expected} of each")
+                             f"{expected} of each quad kernel")
     log(f"[19] {tag} launches {json.dumps(launches)}")
     return payload, launches
 
@@ -4371,9 +4473,9 @@ def phase_headline_bench(device, worst):
     out = bench.main([])
     by_path["bench"] = launches = read_launches()
     log(f"[time] phase 20 bench {time.perf_counter() - t:.1f} s")
-    if launches != {name: expected for name in launches}:
+    if launches != launch_counts(**dict.fromkeys(KERNELS, expected)):
         raise AssertionError(f"bench: {launches} rollout launches, expected "
-                             f"{expected} of each")
+                             f"{expected} of each quad kernel")
     if not out["device_kind"].startswith(torch.cuda.get_device_name(0)):
         raise AssertionError(f"bench: device_kind {out['device_kind']}")
     for batch, row in out["roofline"].items():
@@ -4404,8 +4506,7 @@ def phase_headline_bench(device, worst):
     times = R.benchmark_rollout(batch=ROLLOUT_BENCH_B,
                                 iters=ROLLOUT_BENCH_ITERS)
     by_path["benchmark_rollout"] = launches = read_launches()
-    want = {"quad_rollout_fwd": 1 + ROLLOUT_BENCH_ITERS,
-            "quad_rollout_bwd": 0}
+    want = launch_counts(quad_rollout_fwd=1 + ROLLOUT_BENCH_ITERS)
     if launches != want or sorted(times) != ["cuda", "reference"]:
         raise AssertionError(f"benchmark_rollout: {times}, launches "
                              f"{launches}, expected {want}")
@@ -4421,7 +4522,7 @@ def phase_headline_bench(device, worst):
     with torch.no_grad():
         want_out = cpu_fn(cpu_net, states, refs)
     err = (got.cpu() - want_out).abs().max().item()
-    if (launches != {"quad_rollout_fwd": 1, "quad_rollout_bwd": 0}
+    if (launches != launch_counts(quad_rollout_fwd=1)
             or tuple(got.shape) != (8, 12) or not err <= ENTRY_ATOL):
         raise AssertionError(f"entry: shape {tuple(got.shape)}, launches "
                              f"{launches}, card vs CPU {err:.2e}")
@@ -4602,7 +4703,8 @@ def main(argv=None):
     log(f"[time] phase 20 in all {time.perf_counter() - t20:.1f} s")
     done(20)
     kernels = []
-    for name, rows in timings.items():
+    for name in KERNELS:
+        rows = timings[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4636,6 +4738,27 @@ def main(argv=None):
                 "step_ms": dp_numbers["step_ms"],
                 "step_all_reduce_ms": dp_numbers["step_all_reduce_ms"],
             },
+        })
+    for name in WING_KERNELS:
+        rows = timings[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": WING_SOURCE,
+            "replaces": None,  # the JAX package unrolls the wing with lax
+            "launches": by_path["wing"][name],
+            "max_abs_err": worst[name],
+            **{f"{key}{suffix}": rows[(n, k)][key]
+               for n, k, suffix in ((TIMING_B, HORIZON, ""),
+                                    (TRAIN_B, HORIZON, "_b8"),
+                                    (TIMING_B, 1, "_k1"),
+                                    (TRAIN_B, 1, "_k1_b8"))
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by")
+               if key in rows[(n, k)]},
+            "library_ms": None,
+            "launches_by_path": {path: launches[name]
+                                 for path, launches in by_path.items()
+                                 if name in launches},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,11 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import wing_params
 from apg_trajectory_tracking_tpu_torch.dynamics.learnt import make_learnt_wing
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
 from apg_trajectory_tracking_tpu_torch.parallel import mesh as M
-from apg_trajectory_tracking_tpu_torch.perf.common import graph_steps
+from apg_trajectory_tracking_tpu_torch.perf.common import (
+    graph_steps,
+    launches,
+    wing_launches,
+)
 from apg_trajectory_tracking_tpu_torch.training import train_wing
 from apg_trajectory_tracking_tpu_torch.training.adapt import wing_learnt_step
 from apg_trajectory_tracking_tpu_torch.training.common import (
@@ -294,7 +298,32 @@ def test_fit_captures_once_for_all_epochs(cuda_device, tmp_path,
                                    device=cuda_device)
     assert trainer._train_step.graphable
     e0, c0, r0 = graph_steps()
+    f0, b0 = wing_launches()
     trainer.fit(2, nr_test=2, verbose=False)
     assert trainer.steps_taken == 20
     assert graph_steps() == (e0 + 1, c0 + 1, r0 + 19)
+    # one launch of each wing kernel a step; the flights launch none
+    assert wing_launches() == (f0 + 20, b0 + 20)
     assert all(np.isfinite(trainer.logger.results["loss"]))
+
+
+@pytest.mark.cuda
+def test_a_replayed_step_counts_one_launch_of_each_wing_kernel(cuda_device):
+    """The step unrolls in the two wing rollout kernels: the eager call and
+    the capture each launch one of each, and a replay adds one of each to
+    the counters (``perf/common.wing_launches``); the quad's counters do
+    not move."""
+    step, = _pair(cuda_device, n=1)
+    dyn = wing_params(device=cuda_device)
+    batches = _batches(8, cuda_device, n=4)
+    quad0 = launches()
+    for i, (states, targets) in enumerate(batches):
+        f0, b0 = wing_launches()
+        e0, c0, r0 = graph_steps()
+        step(dyn, states, targets)
+        torch.cuda.synchronize()
+        assert wing_launches() == (f0 + 1, b0 + 1), i
+        # eager, capture (which replays), then replays
+        assert graph_steps() == [(e0 + 1, c0, r0), (e0, c0 + 1, r0 + 1),
+                                 (e0, c0, r0 + 1), (e0, c0, r0 + 1)][i]
+    assert launches() == quad0
