@@ -1,18 +1,25 @@
-"""Build and load the port's CUDA kernels.
+"""Build, check, launch and count the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/`` in the package
 (listed in ``.gitignore``), and loaded with ctypes at first use. Nothing
 is built when a module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
+
+Every kernel launch goes through :func:`launch`, which counts it in
+:data:`LAUNCHES` under its C function's name; :func:`check_args` refuses
+the tensors a kernel cannot take.
 """
 
+import collections
 import ctypes
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
@@ -21,6 +28,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# alignment the kernels need of every tensor's first element: they copy
+# rows between global and shared memory in 16-byte units
+ALIGN_BYTES = 16
+# successful launches of each kernel, by C function name. A replayed CUDA
+# graph launches nothing from the host: training.common.GraphedStep adds
+# the launches it saw at capture on every replay.
+LAUNCHES = collections.Counter()
 
 _LIBS = {}
 
@@ -81,3 +96,44 @@ def load(name, signatures, src=None):
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def check_args(shapes, **tensors):
+    """Refuse the tensors a kernel cannot take (``ValueError``): each one,
+    by argument name, must be float32, contiguous, of the shape
+    ``shapes[name]`` and start at an :data:`ALIGN_BYTES` aligned address;
+    then the first must be a CUDA tensor and every other lie on its
+    device. Every layout is checked before any device, so a CPU tensor
+    shows its layout faults too."""
+    for name, tensor in tensors.items():
+        if tensor.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {tensor.dtype}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(tensor.shape) != tuple(shapes[name]):
+            raise ValueError(f"{name} has shape {tuple(tensor.shape)}, "
+                             f"expected {tuple(shapes[name])}")
+        if tensor.data_ptr() % ALIGN_BYTES:
+            raise ValueError(
+                f"{name} must start at a {ALIGN_BYTES}-byte aligned "
+                f"address, got storage offset {tensor.storage_offset()}")
+    (first, lead), *rest = tensors.items()
+    if not lead.is_cuda:
+        raise ValueError(f"{first} must be a CUDA tensor, got {lead.device}")
+    for name, tensor in rest:
+        if tensor.device != lead.device:
+            raise ValueError(f"{name} lie on {tensor.device}, the {first} "
+                             f"on {lead.device}")
+
+
+def launch(lib, name, device, *args):
+    """Call the C function ``name`` of ``lib`` with ``args`` and the
+    current stream of ``device``, with ``device`` current; raise
+    ``RuntimeError`` on a nonzero CUDA error code, else count the launch
+    in :data:`LAUNCHES`."""
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

@@ -4,9 +4,10 @@ autograd function that joins them (counterpart of the JAX package's
 
 The rollout maps states (B, 12) and actions (B, k, 4) to every intermediate
 state (B, k, 12) under :func:`quad_step`. On the card it is the unroll of
-the concurrent train step: :class:`QuadRollout` launches the forward kernel
-and, for BPTT, the backward kernel (``csrc/quad_rollout.cu``). On the CPU
-the plain twin :func:`quad_rollout_reference` runs under torch autograd.
+the concurrent train step: :class:`KernelRollout`, which also joins the
+wing's kernels, launches the forward kernel and, for BPTT, the backward
+kernel (``csrc/quad_rollout.cu``). On the CPU the plain twin
+:func:`quad_rollout_reference` runs under torch autograd.
 :func:`quad_rollout_backward_reference` is the backward kernel's math
 written in PyTorch, the oracle for the kernel on the card.
 :func:`rollout_bytes` and :func:`rollout_ops` count the kernels' work for a
@@ -35,11 +36,6 @@ from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
 from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
-# launches of each kernel since the counter was last set to 0
-FORWARD_LAUNCHES = 0
-BACKWARD_LAUNCHES = 0
-# alignment the kernels need of every tensor's first element
-ALIGN_BYTES = 16
 # float32 operations per row and step of each kernel, counted from
 # csrc/quad_rollout.cu (each sin and cos counted as one operation)
 FWD_OPS_PER_ROW_STEP = 79
@@ -168,112 +164,74 @@ def quad_rollout_backward_reference(params, states0, actions, states_out,
 # ---------------------------------------------------------------------------
 
 
-def _check_rollout(states, actions, **more):
-    """Check what the kernels take: a horizon of at least 1, and float32
-    contiguous 16-byte aligned CUDA tensors of the rollout's shapes on one
-    device. Every tensor's layout is checked before any device, so a CPU
-    tensor shows its layout faults too."""
+def rollout_shapes(actions):
+    """{argument: shape} of the row tensors the rollout kernels of either
+    family take, at the batch and horizon of ``actions``; refuses actions
+    that are not (B, k, 4) with k of at least 1."""
     if actions.dim() != 3:
         raise ValueError(f"actions must be (B, k, 4), got {actions.shape}")
     B, k = actions.shape[0], actions.shape[1]
     if k < 1:
         raise ValueError(f"horizon must be at least 1, got {k}")
-    shapes = {"states": (B, 12), "actions": (B, k, 4),
-              "states_out": (B, k, 12), "grad_out": (B, k, 12)}
-    tensors = {"states": states, "actions": actions, **more}
-    for name, tensor in tensors.items():
-        _check_layout(name, tensor, shapes[name])
-    for name, tensor in tensors.items():
-        if not tensor.is_cuda:
-            raise ValueError(
-                f"{name} must be a CUDA tensor, got {tensor.device}"
-            )
-    if len({t.device for t in tensors.values()}) != 1:
-        raise ValueError("rollout tensors lie on different devices")
-    return B, k
-
-
-def _check_layout(name, tensor, shape):
-    if tensor.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {tensor.dtype}")
-    if not tensor.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(tensor.shape) != tuple(shape):
-        raise ValueError(
-            f"{name} has shape {tuple(tensor.shape)}, expected {tuple(shape)}"
-        )
-    # the kernels copy rows between global and shared memory in 16-byte
-    # units
-    if tensor.data_ptr() % ALIGN_BYTES:
-        raise ValueError(
-            f"{name} must start at a {ALIGN_BYTES}-byte aligned address, got "
-            f"storage offset {tensor.storage_offset()}"
-        )
-
-
-def _launch(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    return {"states": (B, 12), "actions": (B, k, 4),
+            "states_out": (B, k, 12), "grad_out": (B, k, 12)}
 
 
 def quad_rollout_fwd(states, actions, scalars, dt):
     """Launch the forward kernel: (B, 12), (B, k, 4) -> (B, k, 12)."""
-    global FORWARD_LAUNCHES
-    B, k = _check_rollout(states, actions)
+    cuda_lib.check_args(rollout_shapes(actions), states=states,
+                        actions=actions)
+    B, k = actions.shape[:2]
     out = torch.empty((B, k, 12), dtype=torch.float32, device=states.device)
-    lib = _library()
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream(states.device).cuda_stream
-        _launch(
-            lib.quad_rollout_fwd, states.data_ptr(), actions.data_ptr(),
-            out.data_ptr(), B, k, *scalars, float(dt), stream,
-        )
-    FORWARD_LAUNCHES += 1
+    cuda_lib.launch(_library(), "quad_rollout_fwd", states.device,
+                    states.data_ptr(), actions.data_ptr(), out.data_ptr(),
+                    B, k, *scalars, float(dt))
     return out
 
 
 def quad_rollout_bwd(states, actions, states_out, grad_out, scalars, dt):
     """Launch the backward kernel -> (grad_actions (B, k, 4),
     grad_states0 (B, 12))."""
-    global BACKWARD_LAUNCHES
-    B, k = _check_rollout(states, actions, states_out=states_out,
-                          grad_out=grad_out)
+    cuda_lib.check_args(rollout_shapes(actions), states=states,
+                        actions=actions, states_out=states_out,
+                        grad_out=grad_out)
+    B, k = actions.shape[:2]
     grad_actions = torch.empty_like(actions)
     grad_states = torch.empty_like(states)
-    lib = _library()
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream(states.device).cuda_stream
-        _launch(
-            lib.quad_rollout_bwd, states.data_ptr(), actions.data_ptr(),
-            states_out.data_ptr(), grad_out.data_ptr(),
-            grad_actions.data_ptr(), grad_states.data_ptr(), B, k,
-            *scalars, float(dt), stream,
-        )
-    BACKWARD_LAUNCHES += 1
+    cuda_lib.launch(_library(), "quad_rollout_bwd", states.device,
+                    states.data_ptr(), actions.data_ptr(),
+                    states_out.data_ptr(), grad_out.data_ptr(),
+                    grad_actions.data_ptr(), grad_states.data_ptr(), B, k,
+                    *scalars, float(dt))
     return grad_actions, grad_states
 
 
-class QuadRollout(torch.autograd.Function):
-    """Kernel rollout with a kernel backward; no gradient for the params."""
+def _quad_bwd(states, actions, scalars, states_out, grad_out, dt):
+    return quad_rollout_bwd(states, actions, states_out, grad_out, scalars,
+                            dt)
+
+
+class KernelRollout(torch.autograd.Function):
+    """A kernel rollout with a kernel backward, of either family, and no
+    gradient for the params: ``apply(fwd, bwd, states, actions, params,
+    dt)`` with ``fwd(states, actions, params, dt)`` and ``bwd(states,
+    actions, params, states_out, grad_out, dt)``."""
 
     @staticmethod
-    def forward(ctx, states, actions, scalars, dt):
+    def forward(ctx, fwd, bwd, states, actions, params, dt):
         states = states.contiguous()
         actions = actions.contiguous()
-        out = quad_rollout_fwd(states, actions, scalars, dt)
+        out = fwd(states, actions, params, dt)
         ctx.save_for_backward(states, actions, out)
-        ctx.scalars = scalars
-        ctx.dt = dt
+        ctx.bwd, ctx.params, ctx.dt = bwd, params, dt
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         states, actions, out = ctx.saved_tensors
-        grad_actions, grad_states = quad_rollout_bwd(
-            states, actions, out, grad_out.contiguous(), ctx.scalars, ctx.dt
-        )
-        return grad_states, grad_actions, None, None
+        grad_actions, grad_states = ctx.bwd(
+            states, actions, ctx.params, out, grad_out.contiguous(), ctx.dt)
+        return None, None, grad_states, grad_actions, None, None
 
 
 def rollout_bytes(batch, k):
@@ -300,8 +258,8 @@ def quad_rollout(params, states, actions, dt, remat=False):
     backward reads the saved outputs and recomputes nothing).
     """
     if states.is_cuda:
-        return QuadRollout.apply(states, actions, params.kernel_scalars,
-                                 float(dt))
+        return KernelRollout.apply(quad_rollout_fwd, _quad_bwd, states,
+                                   actions, params.kernel_scalars, float(dt))
     if states.device.type != "cpu":
         raise ValueError(f"unsupported device {states.device}")
     return quad_rollout_reference(params, states, actions, dt, remat=remat)

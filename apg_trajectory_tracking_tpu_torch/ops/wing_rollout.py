@@ -3,8 +3,8 @@ autograd function that joins them.
 
 The rollout maps states (B, 12) and actions (B, k, 4) in [0, 1] to every
 intermediate state (B, k, 12) under :func:`wing_step`. On the card it is
-the unroll of the wing's train step: :class:`WingRollout` launches the
-forward kernel and, for BPTT, the backward kernel
+the unroll of the wing's train step: ``ops.rollout.KernelRollout``
+launches the forward kernel and, for BPTT, the backward kernel
 (``csrc/wing_rollout.cu``), two launches where the step-by-step loop and
 its autograd backward launch about 6,000 small kernels at k = 10. On the
 CPU the plain twin :func:`wing_rollout_reference` runs under torch
@@ -31,25 +31,21 @@ import torch
 
 from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
     ALPHA_BOUND,
-    _COEF_KEYS,
     normalize_wing_action,
     wing_step,
 )
 from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
-from apg_trajectory_tracking_tpu_torch.ops import cuda_lib, rollout
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops.rollout import (
-    _check_layout,
-    _launch,
+    KernelRollout,
+    rollout_shapes,
 )
 
-# launches of each kernel since the counter was last set to 0
-FORWARD_LAUNCHES = 0
-BACKWARD_LAUNCHES = 0
-# the packed params: the 30 coefficients, the inertia and its inverse (row
-# major), then the scalars in this order (csrc/wing_rollout.cu reads the
-# same layout)
+# the packed params: the 30 coefficients of WingParams.coeffs, the inertia
+# and its inverse (row major), then the scalars in this order
+# (csrc/wing_rollout.cu reads the same layout and asserts its 55 floats)
 PARAM_SCALARS = ("mass", "rho", "S", "c", "b", "g", "epsilon")
-N_PARAMS = len(_COEF_KEYS) + 9 + 9 + len(PARAM_SCALARS)
+N_PARAMS = 30 + 9 + 9 + len(PARAM_SCALARS)
 # float32 operations per row and step of each kernel, counted from
 # csrc/wing_rollout.cu (each sqrt, atan, sin, cos, tan and division counted
 # as one operation)
@@ -267,71 +263,38 @@ def pack_wing_params(params):
             torch.float32)
 
 
-def _check_rollout(states, actions, packed, **more):
-    """Check what the kernels take: the packed params' layout, then the
-    quad rollout's checks of the row tensors (a horizon of at least 1,
-    float32 contiguous 16-byte aligned CUDA tensors of the rollout's
-    shapes on one device; every layout before any device, so a CPU tensor
-    shows its layout faults too), and the params on the states' device."""
-    _check_layout("params", packed, (N_PARAMS,))
-    B, k = rollout._check_rollout(states, actions, **more)
-    if packed.device != states.device:
-        raise ValueError(
-            f"params lie on {packed.device}, the states on {states.device}")
-    return B, k
+def _check(states, actions, packed, **more):
+    """Check what the kernels take (``cuda_lib.check_args``): the rollout's
+    row tensors and the packed params."""
+    shapes = {**rollout_shapes(actions), "params": (N_PARAMS,)}
+    cuda_lib.check_args(shapes, states=states, actions=actions,
+                        params=packed, **more)
+    return actions.shape[0], actions.shape[1]
 
 
 def wing_rollout_fwd(states, actions, packed, dt):
     """Launch the forward kernel: (B, 12), (B, k, 4) -> (B, k, 12)."""
-    global FORWARD_LAUNCHES
-    B, k = _check_rollout(states, actions, packed)
+    B, k = _check(states, actions, packed)
     out = torch.empty((B, k, 12), dtype=torch.float32, device=states.device)
-    lib = _library()
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream(states.device).cuda_stream
-        _launch(lib.wing_rollout_fwd, states.data_ptr(), actions.data_ptr(),
-                packed.data_ptr(), out.data_ptr(), B, k, float(dt), stream)
-    FORWARD_LAUNCHES += 1
+    cuda_lib.launch(_library(), "wing_rollout_fwd", states.device,
+                    states.data_ptr(), actions.data_ptr(), packed.data_ptr(),
+                    out.data_ptr(), B, k, float(dt))
     return out
 
 
 def wing_rollout_bwd(states, actions, packed, states_out, grad_out, dt):
     """Launch the backward kernel -> (grad_actions (B, k, 4),
     grad_states0 (B, 12))."""
-    global BACKWARD_LAUNCHES
-    B, k = _check_rollout(states, actions, packed, states_out=states_out,
-                          grad_out=grad_out)
+    B, k = _check(states, actions, packed, states_out=states_out,
+                  grad_out=grad_out)
     grad_actions = torch.empty_like(actions)
     grad_states = torch.empty_like(states)
-    lib = _library()
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream(states.device).cuda_stream
-        _launch(lib.wing_rollout_bwd, states.data_ptr(), actions.data_ptr(),
-                packed.data_ptr(), states_out.data_ptr(), grad_out.data_ptr(),
-                grad_actions.data_ptr(), grad_states.data_ptr(), B, k,
-                float(dt), stream)
-    BACKWARD_LAUNCHES += 1
+    cuda_lib.launch(_library(), "wing_rollout_bwd", states.device,
+                    states.data_ptr(), actions.data_ptr(), packed.data_ptr(),
+                    states_out.data_ptr(), grad_out.data_ptr(),
+                    grad_actions.data_ptr(), grad_states.data_ptr(), B, k,
+                    float(dt))
     return grad_actions, grad_states
-
-
-class WingRollout(torch.autograd.Function):
-    """Kernel rollout with a kernel backward; no gradient for the params."""
-
-    @staticmethod
-    def forward(ctx, states, actions, packed, dt):
-        states = states.contiguous()
-        actions = actions.contiguous()
-        out = wing_rollout_fwd(states, actions, packed, dt)
-        ctx.save_for_backward(states, actions, packed, out)
-        ctx.dt = dt
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        states, actions, packed, out = ctx.saved_tensors
-        grad_actions, grad_states = wing_rollout_bwd(
-            states, actions, packed, out, grad_out.contiguous(), ctx.dt)
-        return grad_states, grad_actions, None, None
 
 
 def wing_rollout_bytes(batch, k):
@@ -357,8 +320,9 @@ def wing_rollout(params, states, actions, dt):
     A CUDA tensor goes through the kernels (params that require grad are
     refused); a CPU tensor through the plain twin under autograd."""
     if states.is_cuda:
-        return WingRollout.apply(states, actions, pack_wing_params(params),
-                                 float(dt))
+        return KernelRollout.apply(wing_rollout_fwd, wing_rollout_bwd,
+                                   states, actions, pack_wing_params(params),
+                                   float(dt))
     if states.device.type != "cpu":
         raise ValueError(f"unsupported device {states.device}")
     return wing_rollout_reference(params, states, actions, dt)

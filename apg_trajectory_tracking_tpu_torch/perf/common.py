@@ -1,7 +1,8 @@
 """What the measuring modules share: the device and its label, host-clock
 timing of calls that each end in a synchronize, and the quad and wing
-rollout kernels' launch counters and the graphed train steps' counters,
-read as differences (a caller's own count from 0 goes on)."""
+rollout kernels' launches (``ops.cuda_lib.LAUNCHES``) and the graphed
+train steps' counters, read as differences (a caller's own count from 0
+goes on)."""
 
 import os
 import subprocess
@@ -9,7 +10,7 @@ import time
 
 import torch
 
-from apg_trajectory_tracking_tpu_torch.ops import rollout, wing_rollout
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.training import common
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
@@ -49,12 +50,14 @@ def sync(device):
 
 def launches():
     """(forward, backward) rollout-kernel launches so far."""
-    return rollout.FORWARD_LAUNCHES, rollout.BACKWARD_LAUNCHES
+    return (cuda_lib.LAUNCHES["quad_rollout_fwd"],
+            cuda_lib.LAUNCHES["quad_rollout_bwd"])
 
 
 def wing_launches():
     """(forward, backward) wing rollout-kernel launches so far."""
-    return wing_rollout.FORWARD_LAUNCHES, wing_rollout.BACKWARD_LAUNCHES
+    return (cuda_lib.LAUNCHES["wing_rollout_fwd"],
+            cuda_lib.LAUNCHES["wing_rollout_bwd"])
 
 
 def graph_steps():

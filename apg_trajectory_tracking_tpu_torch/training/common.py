@@ -1,7 +1,8 @@
 """Shared training machinery: optimizers, minibatch shuffling, config
 loading (counterpart of the JAX package's ``training/common.py``), the
-train CLIs' shared flags and :class:`GraphedStep`, which replays a train
-step from a CUDA graph."""
+train CLIs' shared flags, :func:`apg_step`, the one body of the APG
+trainers' steps, and :class:`GraphedStep`, which replays a train step from
+a CUDA graph."""
 
 import dataclasses
 import json
@@ -10,8 +11,9 @@ import os
 import numpy as np
 import torch
 
-from apg_trajectory_tracking_tpu_torch.ops import rollout, wing_rollout
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
     init_distributed,
     make_mesh,
 )
@@ -30,9 +32,6 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 EAGER_STEPS = 0
 CAPTURES = 0
 REPLAYS = 0
-# the kernel modules whose FORWARD_LAUNCHES and BACKWARD_LAUNCHES count the
-# launches a captured step replays
-_COUNTED = (rollout, wing_rollout)
 
 
 def sgd_momentum(params, lr):
@@ -136,18 +135,48 @@ def print_mesh(mesh):
     print(f"mesh: {mesh.shape} over {mesh.size} device(s)")
 
 
-def _launch_counts():
-    return [(m.FORWARD_LAUNCHES, m.BACKWARD_LAUNCHES) for m in _COUNTED]
+def apg_step(loss_fn, net, optimizer, mesh=None, graphable=False):
+    """-> ``step(*args) -> loss``, a :class:`GraphedStep` that takes one
+    step of ``optimizer`` on ``net`` down the gradient of ``loss_fn(*args)``
+    and returns the loss, detached: every APG trainer's step.
+
+    ``mesh``: the gradients are summed over its ranks before the optimizer
+    step (:func:`all_reduce_grads`). ``graphable``: the builder's word that
+    the step may be captured in a CUDA graph (no host work, nothing that
+    changes between steps but the tensor arguments); a mesh that runs a
+    collective shuts the graph too. Where the graph is used, the second
+    call with the same inputs' shapes, non-tensor arguments and optimizer
+    captures the step and later calls replay it; every other call runs it
+    eagerly (``.eager``). Spans: ``train_step`` around every call, holding
+    ``forward`` (with ``loss_fn``'s own), ``backward``, ``all_reduce``
+    (with a mesh) and ``optimizer`` where the step runs eagerly or is
+    captured, and ``replay`` where it is replayed."""
+
+    def step(*args):
+        optimizer.zero_grad(set_to_none=True)
+        with span("forward"):
+            loss = loss_fn(*args)
+        with span("backward"):
+            loss.backward()
+        if mesh is not None:
+            with span("all_reduce"):
+                all_reduce_grads(mesh, net)
+        with span("optimizer"):
+            optimizer.step()
+        return loss.detach()
+
+    collective = mesh is not None and mesh.collective
+    return GraphedStep(step, optimizer, graphable=graphable and not collective)
 
 
 class GraphedStep:
     """A train step ``step(*args) -> loss`` replayed from a CUDA graph where
     it can be, else run as it is.
 
-    ``step`` (kept as :attr:`eager`) zeroes the gradients, runs forward and
-    backward and takes one step of ``optimizer``. The graph is used when
-    ``graphable`` (False where the step does host work, such as a
-    collective) and every tensor argument is a CUDA tensor. It is keyed
+    ``step`` (kept as :attr:`eager`) sets the gradients to None, runs
+    forward and backward and takes one step of ``optimizer``. The graph is
+    used when ``graphable`` (False where the step does host work, such as
+    a collective) and every tensor argument is a CUDA tensor. It is keyed
     on the tensor arguments' shapes, dtypes and devices, the identity of
     every other argument (a ``QuadParams``, whose ``kernel_scalars`` the
     rollout's launches bake in), the addresses of the optimizer's
@@ -160,12 +189,12 @@ class GraphedStep:
     the graph. Each call copies the tensor arguments into the graph's
     inputs and returns a fresh tensor.
 
-    A replay adds the rollout launches seen at capture to the counters of
-    ``ops/rollout.py`` and ``ops/wing_rollout.py``, so they count one
-    forward and one backward launch per step on both routes. Spans:
-    ``train_step`` around every call, holding the step's own spans on an
-    eager call; ``capture`` (holding them) and ``replay`` on the call that
-    captures; ``replay`` alone after.
+    A replay adds the kernel launches counted in ``ops.cuda_lib.LAUNCHES``
+    at capture to that counter, so every kernel counts the same launches
+    per step on both routes. Spans: ``train_step`` around every call,
+    holding the step's own spans on an eager call; ``capture`` (holding
+    them) and ``replay`` on the call that captures; ``replay`` alone
+    after.
     """
 
     def __init__(self, step, optimizer, graphable=True):
@@ -193,9 +222,8 @@ class GraphedStep:
                 with span("capture"):
                     self._capture(args)
             else:
-                for module, (f, b) in zip(_COUNTED, self._launches):
-                    module.FORWARD_LAUNCHES += f
-                    module.BACKWARD_LAUNCHES += b
+                for name, n in self._launches:
+                    cuda_lib.LAUNCHES[name] += n
             with span("replay"):
                 tensors = (a for a in args if torch.is_tensor(a))
                 for static, a in zip(self._inputs, tensors):
@@ -230,15 +258,14 @@ class GraphedStep:
         self._inputs = [a.clone() for a in args if torch.is_tensor(a)]
         inputs = iter(self._inputs)
         static = [next(inputs) if torch.is_tensor(a) else a for a in args]
-        before = _launch_counts()
-        # the backward writes fresh gradients from the graph's pool
-        self.optimizer.zero_grad(set_to_none=True)
+        before = cuda_lib.LAUNCHES.copy()
+        # the step's own zero_grad drops the eager call's gradients, so its
+        # backward writes fresh ones from the graph's pool
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._loss = self.eager(*static)
         self._graph = graph
-        self._launches = [(f - f0, b - b0) for (f, b), (f0, b0)
-                          in zip(_launch_counts(), before)]
+        self._launches = list((cuda_lib.LAUNCHES - before).items())
         CAPTURES += 1
 
     def _free(self):

@@ -39,7 +39,6 @@ from apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval import (
 from apg_trajectory_tracking_tpu_torch.losses import cartpole_loss_mpc
 from apg_trajectory_tracking_tpu_torch.models.simple import CartpoleNet
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
-    all_reduce_grads,
     auto_mesh,
     barrier,
     host_local_fold,
@@ -48,6 +47,7 @@ from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
 )
 from apg_trajectory_tracking_tpu_torch.training.common import (
     add_infra_args,
+    apg_step,
     infra_mesh,
     load_config,
     print_mesh,
@@ -85,18 +85,14 @@ def cartpole_loss(net, dyn_params, states, dt, horizon,
 def build_cartpole_step(net, optimizer, dt, horizon,
                         dyn_step=cartpole_step, mesh=None):
     """-> ``step(dyn_params, states) -> loss``: one SGD step of
-    ``optimizer`` on ``net``, the gradients summed over the ranks of
-    ``mesh``."""
+    ``optimizer`` on ``net`` under :func:`cartpole_loss` (an
+    :func:`apg_step`, the gradients summed over the ranks of ``mesh``).
+    The step runs eagerly: no graph."""
 
-    def step(dyn_params, states):
-        optimizer.zero_grad(set_to_none=True)
-        loss = cartpole_loss(net, dyn_params, states, dt, horizon, dyn_step)
-        loss.backward()
-        all_reduce_grads(mesh, net)
-        optimizer.step()
-        return loss.detach()
+    def loss_fn(dyn_params, states):
+        return cartpole_loss(net, dyn_params, states, dt, horizon, dyn_step)
 
-    return step
+    return apg_step(loss_fn, net, optimizer, mesh)
 
 
 class TrainCartpole:

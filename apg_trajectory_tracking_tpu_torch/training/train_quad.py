@@ -35,6 +35,7 @@ The minibatch size must split evenly over the ranks.
 """
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -54,6 +55,7 @@ from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
     quad_params,
     quad_step,
 )
+from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
 from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
     full_state_training_data,
 )
@@ -67,7 +69,6 @@ from apg_trajectory_tracking_tpu_torch.models.rnn import (
 )
 from apg_trajectory_tracking_tpu_torch.ops.rollout import quad_rollout
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
-    all_reduce_grads,
     auto_mesh,
     barrier,
     host_local_rng,
@@ -84,8 +85,8 @@ from apg_trajectory_tracking_tpu_torch.trajectory.minjerk import (
 )
 from apg_trajectory_tracking_tpu_torch.trajectory.refs import _to_state_rows
 from apg_trajectory_tracking_tpu_torch.training.common import (
-    GraphedStep,
     add_infra_args,
+    apg_step,
     infra_mesh,
     load_config,
     print_mesh,
@@ -116,7 +117,8 @@ def dyn_step_unroll(dyn_step):
         actions, a fresh (16-byte aligned) tensor, so the kernels still run
         one forward and one backward launch per unroll and autograd
         carries the gradient through the map;
-      * any other callable -> an eager loop of k calls (no kernel).
+      * any other callable -> :func:`step_rollout` of it, an eager loop
+        of k calls (no kernel).
     """
     if dyn_step is quad_step:
         return None
@@ -124,14 +126,8 @@ def dyn_step_unroll(dyn_step):
         def unroll(dyn_params, states, actions, dt):
             return quad_rollout(dyn_params, states,
                                 dyn_step.action_map(actions), dt)
-    else:
-        def unroll(dyn_params, states, actions, dt):
-            out, state = [], states
-            for t in range(actions.shape[1]):
-                state = dyn_step(dyn_params, state, actions[:, t], dt)
-                out.append(state)
-            return torch.stack(out, dim=1)
-    return unroll
+        return unroll
+    return functools.partial(step_rollout, dyn_step)
 
 
 def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
@@ -162,38 +158,18 @@ def concurrent_loss(net, dyn_params, states, refs, dt, horizon,
 def build_concurrent_step(net, optimizer, dt, horizon, action_dim=4,
                           remat=False, unroll=None, mesh=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
-    ``optimizer`` on ``net``. ``remat`` recomputes each dynamics step in
-    the backward pass on the CPU twin; the kernel path keeps only the
-    rollout's outputs and recomputes nothing. ``unroll``: see
-    :func:`concurrent_loss`. ``mesh``: the gradients are summed over its
-    ranks before the optimizer step (:func:`all_reduce_grads`).
+    ``optimizer`` on ``net`` under :func:`concurrent_loss` (an
+    :func:`apg_step`, the gradients summed over the ranks of ``mesh``).
+    ``remat`` recomputes each dynamics step in the backward pass on the CPU
+    twin; the kernel path keeps only the rollout's outputs and recomputes
+    nothing. ``unroll``: see :func:`concurrent_loss`. The graph may engage
+    only on the rollout kernels (``unroll`` None)."""
 
-    The step is a :class:`GraphedStep`: on CUDA inputs, on the rollout
-    kernels (``unroll`` None) and with no collective to run, its second
-    call with the same inputs' shapes, ``dyn_params`` and optimizer
-    captures it in a CUDA graph and later calls replay it; every other call
-    runs it eagerly (``.eager``). Spans: ``train_step`` around every call,
-    holding ``forward`` (with :func:`concurrent_loss`'s), ``backward``,
-    ``all_reduce`` (with a mesh) and ``optimizer`` where the step runs
-    eagerly or is captured, and ``replay`` where it is replayed."""
+    def loss_fn(dyn_params, states, refs):
+        return concurrent_loss(net, dyn_params, states, refs, dt, horizon,
+                               action_dim, remat, unroll)
 
-    def step(dyn_params, states, refs):
-        optimizer.zero_grad(set_to_none=True)
-        with span("forward"):
-            loss = concurrent_loss(net, dyn_params, states, refs, dt,
-                                   horizon, action_dim, remat, unroll)
-        with span("backward"):
-            loss.backward()
-        if mesh is not None:
-            with span("all_reduce"):
-                all_reduce_grads(mesh, net)
-        with span("optimizer"):
-            optimizer.step()
-        return loss.detach()
-
-    collective = mesh is not None and mesh.collective
-    return GraphedStep(step, optimizer,
-                       graphable=unroll is None and not collective)
+    return apg_step(loss_fn, net, optimizer, mesh, graphable=unroll is None)
 
 
 def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
@@ -241,21 +217,17 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
 def build_recurrent_step(net, optimizer, dt, horizon, action_dim=4,
                          lstm=False, lstm_hidden=8, unroll=None, mesh=None):
     """-> ``step(dyn_params, states, refs2h) -> loss``: one SGD step of
-    ``optimizer`` on ``net`` in the autoregressive or LSTM mode, the
-    gradients summed over the ranks of ``mesh``. ``action_dim`` is
-    accepted and unused, as in the JAX package (each inner step's action
-    is the net's whole output)."""
+    ``optimizer`` on ``net`` in the autoregressive or LSTM mode under
+    :func:`recurrent_loss` (an :func:`apg_step`, the gradients summed over
+    the ranks of ``mesh``). ``action_dim`` is accepted and unused, as in
+    the JAX package (each inner step's action is the net's whole output).
+    The step runs eagerly: no graph."""
 
-    def step(dyn_params, states, refs):
-        optimizer.zero_grad(set_to_none=True)
-        loss = recurrent_loss(net, dyn_params, states, refs, dt, horizon,
+    def loss_fn(dyn_params, states, refs):
+        return recurrent_loss(net, dyn_params, states, refs, dt, horizon,
                               lstm, lstm_hidden, unroll)
-        loss.backward()
-        all_reduce_grads(mesh, net)
-        optimizer.step()
-        return loss.detach()
 
-    return step
+    return apg_step(loss_fn, net, optimizer, mesh)
 
 
 def _take_base_width(cfg, base_model):

@@ -49,7 +49,6 @@ from apg_trajectory_tracking_tpu_torch.losses import fixed_wing_mpc_loss
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
 from apg_trajectory_tracking_tpu_torch.ops.wing_rollout import wing_rollout
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
-    all_reduce_grads,
     auto_mesh,
     barrier,
     host_local_rng,
@@ -57,8 +56,8 @@ from apg_trajectory_tracking_tpu_torch.parallel.mesh import (
     replicate,
 )
 from apg_trajectory_tracking_tpu_torch.training.common import (
-    GraphedStep,
     add_infra_args,
+    apg_step,
     infra_mesh,
     load_config,
     print_mesh,
@@ -107,37 +106,17 @@ def wing_loss(net, dyn_params, states, ref_pos, mean, std, dt_train, dt,
 def build_wing_step(net, optimizer, dt_train, dt, horizon, mean, std,
                     dyn_step=wing_step, mesh=None):
     """-> ``step(dyn_params, states, refs) -> loss``: one SGD step of
-    ``optimizer`` on ``net``, the gradients summed over the ranks of
-    ``mesh``; ``mean``/``std`` are tensors on the net's device.
+    ``optimizer`` on ``net`` under :func:`wing_loss` (an :func:`apg_step`,
+    the gradients summed over the ranks of ``mesh``); ``mean``/``std`` are
+    tensors on the net's device. The graph may engage only with the
+    analytic :func:`wing_step`: a learnt model changes between steps."""
 
-    The step is a :class:`GraphedStep`: on CUDA inputs, with the analytic
-    :func:`wing_step` (a learnt model changes between steps) and no
-    collective to run, its second call with the same inputs' shapes,
-    ``dyn_params`` and optimizer captures the whole eager unroll in one
-    CUDA graph and later calls replay it; every other call runs it eagerly
-    (``.eager``). Spans as in ``train_quad.build_concurrent_step``:
-    ``train_step`` around every call, holding ``forward`` (with
-    :func:`wing_loss`'s), ``backward``, ``all_reduce`` (with a mesh) and
-    ``optimizer`` where the step runs eagerly or is captured, and
-    ``replay`` where it is replayed."""
+    def loss_fn(dyn_params, states, refs):
+        return wing_loss(net, dyn_params, states, refs, mean, std, dt_train,
+                         dt, horizon, dyn_step)
 
-    def step(dyn_params, states, refs):
-        optimizer.zero_grad(set_to_none=True)
-        with span("forward"):
-            loss = wing_loss(net, dyn_params, states, refs, mean, std,
-                             dt_train, dt, horizon, dyn_step)
-        with span("backward"):
-            loss.backward()
-        if mesh is not None:
-            with span("all_reduce"):
-                all_reduce_grads(mesh, net)
-        with span("optimizer"):
-            optimizer.step()
-        return loss.detach()
-
-    collective = mesh is not None and mesh.collective
-    return GraphedStep(step, optimizer,
-                       graphable=dyn_step is wing_step and not collective)
+    return apg_step(loss_fn, net, optimizer, mesh,
+                    graphable=dyn_step is wing_step)
 
 
 class TrainWing:

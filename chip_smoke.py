@@ -1051,23 +1051,16 @@ def phase_carried_wing(device):
 
 
 def reset_launches():
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
-    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 
-    for module in (R, W):
-        module.FORWARD_LAUNCHES = 0
-        module.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
 
 
 def read_launches():
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as R
-    from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 
     torch.cuda.synchronize()
-    return {"quad_rollout_fwd": R.FORWARD_LAUNCHES,
-            "quad_rollout_bwd": R.BACKWARD_LAUNCHES,
-            "wing_rollout_fwd": W.FORWARD_LAUNCHES,
-            "wing_rollout_bwd": W.BACKWARD_LAUNCHES}
+    return {name: cuda_lib.LAUNCHES[name] for name in KERNELS + WING_KERNELS}
 
 
 def launch_counts(**counts):
@@ -2809,19 +2802,19 @@ class StageClock:
         self.calls = []
 
     def timed(self, label, fn):
-        from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+        from apg_trajectory_tracking_tpu_torch.perf.common import launches
 
         def run(*args, **kw):
             torch.cuda.synchronize()
-            f0, b0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+            f0, b0 = launches()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
+            f1, b1 = launches()
             self.calls.append({
                 "stage": label(kw) if callable(label) else label,
                 "s": time.perf_counter() - t0,
-                "fwd": R.FORWARD_LAUNCHES - f0,
-                "bwd": R.BACKWARD_LAUNCHES - b0, "args": args})
+                "fwd": f1 - f0, "bwd": b1 - b0, "args": args})
             return out
 
         return run
@@ -4550,8 +4543,10 @@ def phase_headline_bench(device, worst):
 def raw_launchers(lib, n, params, device):
     """The forward and backward C functions of the rollout library ``lib``
     on fresh inputs of batch ``n``, k = 10, checked once against the plain
-    versions. They go around the wrappers, so no launch count moves: these
-    runs only compare builds."""
+    versions. They go around the wrappers' checks (``cuda_lib.launch``
+    counts them as launches of the port's kernels): these runs only
+    compare builds."""
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
     from apg_trajectory_tracking_tpu_torch.ops import rollout as R
 
     scalars = params.kernel_scalars
@@ -4560,15 +4555,15 @@ def raw_launchers(lib, n, params, device):
     ga, gs = torch.empty_like(a), torch.empty_like(s)
 
     def fwd():
-        R._launch(lib.quad_rollout_fwd, s.data_ptr(), a.data_ptr(),
-                  out.data_ptr(), n, HORIZON, *scalars, DT,
-                  torch.cuda.current_stream().cuda_stream)
+        cuda_lib.launch(lib, "quad_rollout_fwd", device, s.data_ptr(),
+                        a.data_ptr(), out.data_ptr(), n, HORIZON, *scalars,
+                        DT)
 
     def bwd():
-        R._launch(lib.quad_rollout_bwd, s.data_ptr(), a.data_ptr(),
-                  out.data_ptr(), g.data_ptr(), ga.data_ptr(), gs.data_ptr(),
-                  n, HORIZON, *scalars, DT,
-                  torch.cuda.current_stream().cuda_stream)
+        cuda_lib.launch(lib, "quad_rollout_bwd", device, s.data_ptr(),
+                        a.data_ptr(), out.data_ptr(), g.data_ptr(),
+                        ga.data_ptr(), gs.data_ptr(), n, HORIZON, *scalars,
+                        DT)
 
     fwd()
     bwd()

@@ -43,7 +43,9 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 from apg_trajectory_tracking_tpu_torch.dynamics.unroll import step_rollout
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import adapt
 from apg_trajectory_tracking_tpu_torch.training import dynamics_fit as tfit
 from apg_trajectory_tracking_tpu_torch.training.common import load_config
@@ -745,12 +747,12 @@ def test_learnt_quad_step_on_kernels_matches_twin_after_sysid(cuda_device):
             ("twin", lambda p, x, u, dt: step_rollout(
                 adapt.quad_learnt_step, p, x, u, dt))):
         net.zero_grad(set_to_none=True)
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         loss = concurrent_loss(net, ld, states, refs, DT, 10, unroll=unroll)
         loss.backward()
         torch.cuda.synchronize()
         out[name] = (loss.item(), net_to_jax(net, lambda p: p.grad),
-                     (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES))
+                     launches())
     assert out["kernels"][2] == (10, 10) and out["twin"][2] == (0, 0)
     np.testing.assert_allclose(out["kernels"][0], out["twin"][0], rtol=1e-5)
     for key, want in out["twin"][1].items():

@@ -43,7 +43,8 @@ from apg_trajectory_tracking_tpu_torch.evaluation import (
 from apg_trajectory_tracking_tpu_torch.evaluation import cartpole_eval
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
 from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_from_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import (
     rate_cap,
     swingup_adapt,
@@ -527,10 +528,10 @@ def test_card_wall_mpc_row_launches(cuda_device):
     rng = np.random.RandomState(4)
     refs = np.cumsum(rng.randn(2, 40, 9).astype(np.float32) * 0.02, axis=1)
     refs[:, :, 2] += 3.0
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     row = tables.wall_mpc_row(refs, cuda_device, n_iters=100, max_steps=2)
     torch.cuda.synchronize()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (200, 200)
+    assert launches() == (200, 200)
     assert row["n"] == 2 and np.isfinite(row["mean_divergence"])
 
 
@@ -546,12 +547,12 @@ def test_card_widened_unroll_on_kernels_matches_twin(cuda_device):
     out = {}
     for dev in (cuda_device, CPU):
         a = actions.to(dev).clone().requires_grad_()
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         y = unroll(quad_params(device=dev), states.to(dev), a, 0.1)
         (y ** 2).sum().backward()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (1, 1)
+            assert launches() == (1, 1)
         out[dev.type] = (y.detach().cpu(), a.grad.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=1e-4)

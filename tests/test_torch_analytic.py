@@ -535,17 +535,18 @@ def cuda_device():
 def test_card_analytic_flight_matches_cpu(cuda_device, ref):
     """30 steps of ``quad_minjerk_trained`` from the CLI's start on the card
     and the CPU: states within 5e-4, no rollout kernel launched."""
-    from apg_trajectory_tracking_tpu_torch.ops import rollout as K
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+    from apg_trajectory_tracking_tpu_torch.perf.common import launches
 
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         net, cfg = quad_eval.load_quad_controller(
             os.path.join(ASSETS, "quad_minjerk_trained"), device=dev)
         init, tw, tp = quad_eval.analytic_setup(ref, cfg, 2, dev, H)
-        K.FORWARD_LAUNCHES = K.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         roll = quad_eval.follow_analytic(net, quad_params(device=dev), tw, tp,
                                          init, max_steps=FLIGHT_STEPS)
-        assert (K.FORWARD_LAUNCHES, K.BACKWARD_LAUNCHES) == (0, 0)
+        assert launches() == (0, 0)
         out[dev.type] = {k: v.cpu().numpy() for k, v in roll.items()}
     np.testing.assert_array_equal(out["cuda"]["valid"], out["cpu"]["valid"])
     np.testing.assert_allclose(out["cuda"]["states"], out["cpu"]["states"],

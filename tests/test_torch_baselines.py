@@ -34,7 +34,9 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
     wing_params,
 )
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.utils import checkpoints as ckpt
 
 ENV_TOL = 1e-5
@@ -431,12 +433,11 @@ def test_quad_train_iter_card_matches_cpu(cuda_device):
         init, train_iter = ppo.make_ppo(env, cfg, device=dev)
         state = init(torch.Generator().manual_seed(0))
         draws = ppo.draw_iter(torch.Generator().manual_seed(1), env, cfg)
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         state, _ = train_iter(state, draws)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (
-                cfg.n_steps, 0)
+            assert launches() == (cfg.n_steps, 0)
         out[dev.type] = ppo.actor_critic_to_jax(state.params)
     for key, want in out["cpu"].items():
         np.testing.assert_allclose(out["cuda"][key], want, rtol=0,
@@ -452,11 +453,11 @@ def test_quad_env_step_on_card_matches_cpu(cuda_device):
         env = rl_envs.make_quad_rl(quad_params(), BANK, device=dev)
         s, _ = env.reset(torch.tensor([0, 1, 2]))
         action = torch.linspace(-0.5, 0.5, 12).reshape(3, 4).to(dev)
-        R.FORWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         s, obs, rew, done = env.step(s, action, torch.tensor([2, 1, 0]))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert R.FORWARD_LAUNCHES == 1
+            assert launches()[0] == 1
         out[dev.type] = (s.state.cpu(), obs.cpu(), rew.cpu())
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

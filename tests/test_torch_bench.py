@@ -33,6 +33,7 @@ from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
 from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_from_jax
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
 from apg_trajectory_tracking_tpu_torch.perf import ab
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     generate_trajectory_bank,
 )
@@ -274,10 +275,10 @@ def test_peaks_and_roofline_entry():
 
 
 def test_benchmark_rollout_on_the_host_times_the_twin_only():
-    f0, b0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+    f0, b0 = launches()
     out = R.benchmark_rollout(batch=64, iters=2, device="cpu")
     assert list(out) == ["reference"] and out["reference"] > 0
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (f0, b0)
+    assert launches() == (f0, b0)
 
 
 @pytest.mark.parametrize("call", ["bench", "benchmark_rollout", "entry",

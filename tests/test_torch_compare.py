@@ -40,7 +40,8 @@ from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval, wing_eval
 from apg_trajectory_tracking_tpu_torch.evaluation.cartpole_eval import (
     evaluate_balance,
 )
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     load_trajectory_bank,
     prepare_trajectory,
@@ -446,13 +447,13 @@ def test_card_mpc_loop_launches_and_matches_cpu(cuda_device, horizon):
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         mpc = MPC(horizon=horizon, dt=0.1, n_iters=5, device=dev)
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         roll = compare.mpc_follow_trajectories(
             mpc._solve, quad_params(device=dev),
             torch.from_numpy(refs).to(dev), 30, horizon=horizon, max_steps=4)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (20, 20)
+            assert launches() == (20, 20)
         out[dev.type] = {k: v.cpu().numpy() for k, v in roll.items()}
     np.testing.assert_array_equal(out["cuda"]["valid"], out["cpu"]["valid"])
     np.testing.assert_allclose(out["cuda"]["divergences"],

@@ -26,7 +26,9 @@ from apg_trajectory_tracking_tpu_torch.controllers import mpc as tmpc
 from apg_trajectory_tracking_tpu_torch.dynamics import cartpole as tcart
 from apg_trajectory_tracking_tpu_torch.dynamics import fixed_wing_2d as tw2
 from apg_trajectory_tracking_tpu_torch.dynamics import quad as tquad
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.trajectory import quaternions as tq
 
 MODELS = ["flightmare", "simple_quad", "high_mpc", "cartpole",
@@ -302,17 +304,17 @@ def test_flightmare_solve_on_kernels_matches_twin(cuda_device, B):
     x0, ref = (torch.from_numpy(a).to(cuda_device) for a in (x0, ref))
     z0 = torch.zeros((B, 10, 4), device=cuda_device)
     params = tquad.quad_params(device=cuda_device)
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     u_k, _, c_k = solve(params, x0, ref, z0)
     torch.cuda.synchronize()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (50, 50)
+    assert launches() == (50, 50)
 
     # the same solve with the unroll on the plain twin under autograd
     twin_solve = tmpc._make_solver(
         tquad.quad_step, spec, 10, 0.1, 50, 0.1,
         unroll=lambda p, x, u: R.quad_rollout_reference(p, x, u, 0.1))
     u_p, _, c_p = twin_solve(params, x0, ref, z0)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (50, 50)
+    assert launches() == (50, 50)
     # atol 1e-5 for the costs near 0 of states that start on their
     # reference
     torch.testing.assert_close(c_k, c_p, rtol=1e-4, atol=1e-5)
@@ -325,10 +327,10 @@ def test_flightmare_mpc_on_the_card_refuses_nothing(cuda_device):
     control step launches each kernel n_iters times."""
     mpc = tmpc.MPC(horizon=10, dt=0.1, dynamics="flightmare", n_iters=7)
     state, ref, _ = _mpc_case("flightmare")
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     for _ in range(3):
         u = mpc.predict_actions(state, ref)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (21, 21)
+    assert launches() == (21, 21)
     cpu = tmpc.MPC(horizon=10, dt=0.1, dynamics="flightmare", n_iters=7,
                    device="cpu")
     for _ in range(3):

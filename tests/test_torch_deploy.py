@@ -48,7 +48,9 @@ from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
 from apg_trajectory_tracking_tpu_torch.envs import external_sim as xs
 from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
 from apg_trajectory_tracking_tpu_torch.models.rnn import init_lstm_state
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     load_trajectory_bank,
     prepare_trajectory,
@@ -511,12 +513,12 @@ def test_card_mock_backend_launches_one_forward_kernel_per_step(tmp_path):
         factory = (xs.NativeQuadSimBackend if backend == "native" else
                    lambda dev=dev, **kw: xs.MockFlightgymBackend(
                        device=dev, **kw))
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         out[(dev, backend)] = xs.evaluate_external(counting, factory, refs,
                                                    ref_len)
         torch.cuda.synchronize()
         want = steps["n"] if (dev, backend) == ("cuda", "mock") else 0
-        assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (want, 0)
+        assert launches() == (want, 0)
     card, cpu = out[("cuda", "mock")], out[("cpu", "mock")]
     assert card["mean_success"] == cpu["mean_success"]
     assert card["mean_divergence"] == pytest.approx(cpu["mean_divergence"],

@@ -43,7 +43,8 @@ from apg_trajectory_tracking_tpu_torch.envs.quad_env import (
 )
 from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import distill
 from apg_trajectory_tracking_tpu_torch.training.common import (
     ADAM_EPS,
@@ -475,7 +476,7 @@ def test_card_labels_launch_the_kernels_and_match_the_cpu(cuda_device,
     generate_trajectory_bank(d, n_train=4, n_test=4)
     states, windows = pairs(d, 8, 10)
     labels = {}
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     for device in ("cpu", cuda_device):
         solve = _make_solver(quad_step, _SPECS["flightmare"].to(device), 10,
                              0.1, 5, 0.1)
@@ -483,7 +484,7 @@ def test_card_labels_launch_the_kernels_and_match_the_cpu(cuda_device,
             solve, quad_params(device=device),
             torch.from_numpy(states).to(device),
             torch.from_numpy(windows).to(device), 10, 10).cpu()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (5, 5)
+    assert launches() == (5, 5)
     np.testing.assert_allclose(torch.sigmoid(labels["cuda"]).numpy(),
                                torch.sigmoid(labels["cpu"]).numpy(),
                                atol=LABEL_ATOL)

@@ -34,7 +34,8 @@ from apg_trajectory_tracking_tpu_torch.dynamics.quad import (
     quad_step,
 )
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import distill
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     generate_trajectory_bank,
@@ -373,9 +374,9 @@ def test_card_teacher_launches_the_kernels_per_iteration(cuda_device,
     for device in ("cpu", cuda_device):
         solve = _make_solver(quad_step, _SPECS["flightmare"].to(device), 20,
                              0.1, 4, 0.1)
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         out[str(device)] = distill.teacher_rollout(
             solve, quad_params(device=device), refs.to(device), 20, steps=3)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (12, 12)
+    assert launches() == (12, 12)
     np.testing.assert_allclose(out["cuda"][0].cpu().numpy(),
                                out["cpu"][0].numpy(), atol=TEACHER_ATOL)

@@ -39,7 +39,8 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
 )
 from apg_trajectory_tracking_tpu_torch.evaluation import wing_eval
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import distill
 from apg_trajectory_tracking_tpu_torch.training.common import adam_init
 from apg_trajectory_tracking_tpu_torch.utils.checkpoints import net_from_jax
@@ -297,7 +298,7 @@ def test_wing_cli_targets_are_the_evaluators_distribution():
 def test_card_wing_labels_launch_no_rollout_kernel(cuda_device):
     states, targets = wing_pairs(8, seed=1)
     labels = {}
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     for device in ("cpu", cuda_device):
         solve = _make_solver(wing_step, _SPECS["fixed_wing_3D"].to(device),
                              10, 0.05, 3, 0.1)
@@ -305,7 +306,7 @@ def test_card_wing_labels_launch_no_rollout_kernel(cuda_device):
             solve, wing_params(device=device),
             torch.from_numpy(states).to(device),
             torch.from_numpy(targets).to(device), 10, 10).cpu()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (0, 0)
+    assert launches() == (0, 0)
     np.testing.assert_allclose(torch.sigmoid(labels["cuda"]).numpy(),
                                torch.sigmoid(labels["cpu"]).numpy(),
                                atol=LABEL_ATOL)

@@ -1,79 +1,58 @@
-"""The concurrent train step replayed from a CUDA graph
-(``training.common.GraphedStep``, built by
-``train_quad.build_concurrent_step``).
+"""The train steps replayed from a CUDA graph
+(``training.common.GraphedStep``, built by ``training.common.apg_step``
+for each of the four APG step builders).
 
-On the host every route runs eagerly and computes what the eager step
-computes, bit for bit; the eager counter counts each call. On the card
-(``cuda`` marker; ``python -m pytest --noconftest
-tests/test_torch_graph_step.py -m cuda``) the graphed step is held to the
-eager step from the same weights on the same six minibatches: each loss,
-every weight and every momentum buffer within 1e-6 relative and bit for
-bit (the replay runs the same kernels on the same data), with cuDNN held
-to deterministic algorithms: its default weight gradient of the net's
-convolution sums with atomics, so that two eager runs from the same
+On the host every route of every builder runs eagerly and computes what
+the eager step computes, bit for bit; the eager counter counts each call.
+On the card (``cuda`` marker; ``python -m pytest --noconftest
+tests/test_torch_graph_step.py -m cuda``) the graphed concurrent step is
+held to the eager step from the same weights on the same six minibatches:
+each loss, every weight and every momentum buffer within 1e-6 relative and
+bit for bit (the replay runs the same kernels on the same data), with
+cuDNN held to deterministic algorithms: its default weight gradient of the
+net's convolution sums with atomics, so that two eager runs from the same
 weights differ in the last bits, and at B = 4096 the conv's momentum by
 1.6e-4 of its largest element in 3 of 8 pairs. Also each call's loss a
 tensor of its own, one forward and one backward rollout launch per step
-on both routes, and one eager call and one capture after each change of
-the graph's key. This file imports no JAX, so that it also runs on the
-card's machine."""
+on both routes, one eager call and one capture after each change of the
+graph's key, and a kernel ``GraphedStep`` does not know of counted on
+every replay. This file imports no JAX, so that it also runs on the card's
+machine."""
 
-import copy
+import collections
 
-import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from apg_trajectory_tracking_tpu_torch.dynamics.learnt import make_learnt_wing
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
-from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.parallel import mesh as M
 from apg_trajectory_tracking_tpu_torch.perf.common import (
     graph_steps,
     launches,
 )
 from apg_trajectory_tracking_tpu_torch.training import train_quad
-from apg_trajectory_tracking_tpu_torch.training.common import (
-    GraphedStep,
-    sgd_momentum,
-)
+from apg_trajectory_tracking_tpu_torch.training.adapt import wing_learnt_step
+from apg_trajectory_tracking_tpu_torch.training.common import GraphedStep
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+import apg_train_steps as train_steps
+from apg_train_steps import weights_and_momentum as _tensors
 
-DT, HORIZON, LR = 0.1, 10, 1e-5
+LR = 1e-5
 RTOL = 1e-6
 
 
-def _net(device):
-    net = ControlNet(15, HORIZON, 9, 4 * HORIZON, hidden=64, conv=True,
-                     generator=torch.Generator().manual_seed(3))
-    return net.to(device)
+def _pair(device, n=2, **kwargs):
+    """The concurrent step under test and more from the same weights, the
+    first of which is the reference (its ``.eager``) -> (step, reference,
+    ...)."""
+    return train_steps.build("concurrent", device, n, **kwargs)
 
 
 def _batches(batch, device, n=6, seed=0):
-    out = []
-    for i in range(n):
-        rng = np.random.RandomState(seed + i)
-        states = rng.randn(batch, 12).astype(np.float32) * 0.3
-        refs = rng.randn(batch, HORIZON, 9).astype(np.float32) * 0.3
-        out.append((torch.from_numpy(states).to(device),
-                    torch.from_numpy(refs).to(device)))
-    return out
-
-
-def _pair(device, n=2, **kwargs):
-    """The step under test and more from the same weights, the first of
-    which is the reference (its ``.eager``) -> (step, reference, ...)."""
-    net = _net(device)
-    return tuple(train_quad.build_concurrent_step(
-        m, sgd_momentum(m.parameters(), LR), DT, HORIZON, **kwargs)
-        for m in [net] + [copy.deepcopy(net) for _ in range(n - 1)])
-
-
-def _tensors(step):
-    """The step's weights and momentum buffers."""
-    params = step.optimizer.param_groups[0]["params"]
-    return [p.detach() for p in params] + [
-        step.optimizer.state[p]["momentum_buffer"] for p in params]
+    return train_steps.batches("concurrent", batch, device, n, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -90,32 +69,47 @@ def group_of_one(tmp_path_factory):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("route, graphable", [
-    ("default", True), ("mesh_of_one", True), ("unroll", False),
-    ("collective", False)])
-def test_the_gate_and_the_host_route(route, graphable, request):
-    """``build_concurrent_step`` lets the graph engage only on the rollout
-    kernels and with no collective; on the host every call runs eagerly,
-    is counted as eager, launches no kernel and computes the eager step's
-    bits."""
+# (builder, route, whether the graph may engage): a mesh of one sums its
+# gradients with no collective; a custom unroll or a learnt wing changes
+# between steps; the recurrent and cartpole steps always run eagerly
+GATES = [
+    ("concurrent", "default", True), ("concurrent", "mesh_of_one", True),
+    ("concurrent", "unroll", False), ("concurrent", "collective", False),
+    ("wing", "default", True), ("wing", "mesh_of_one", True),
+    ("wing", "learnt", False), ("wing", "collective", False),
+    ("recurrent", "default", False), ("recurrent", "mesh_of_one", False),
+    ("cartpole", "default", False), ("cartpole", "mesh_of_one", False)]
+
+
+@pytest.mark.parametrize("builder, route, graphable", GATES,
+                         ids=[f"{b}-{r}" for b, r, _ in GATES])
+def test_the_gate_and_the_host_route(builder, route, graphable, request):
+    """Each builder returns a ``GraphedStep`` whose graph may engage only
+    where its gate says; on the host every call runs eagerly, is counted
+    as eager, launches no kernel and computes the eager step's bits."""
     kwargs = {}
+    dyn = train_steps.dyn(builder)
     if route == "mesh_of_one":
-        kwargs["mesh"] = M.auto_mesh(16)
+        kwargs["mesh"] = M.auto_mesh(8)
     elif route == "unroll":
         kwargs["unroll"] = train_quad.dyn_step_unroll(
             lambda *a: train_quad.quad_step(*a))
+    elif route == "learnt":
+        kwargs["dyn_step"] = wing_learnt_step
+        dyn, _ = make_learnt_wing(torch.Generator().manual_seed(1),
+                                  std=1e-4)
     elif route == "collective":
         kwargs["mesh"] = request.getfixturevalue("group_of_one")
-    step, ref = _pair("cpu", **kwargs)
+    step, ref = train_steps.build(builder, **kwargs)
     assert isinstance(step, GraphedStep) and step.graphable is graphable
-    dyn = quad_params(device="cpu")
-    (e0, c0, r0), launches0 = graph_steps(), launches()
-    for states, refs in _batches(16, "cpu", n=3):
-        assert step._key_of((dyn, states, refs)) is None
-        assert torch.equal(step(dyn, states, refs),
-                           ref.eager(dyn, states, refs))
+    (e0, c0, r0), launches0 = graph_steps(), cuda_lib.LAUNCHES.copy()
+    for batch in train_steps.batches(builder, 8):
+        assert step._key_of((dyn, *batch)) is None
+        loss = step(dyn, *batch)
+        assert torch.equal(loss, ref.eager(dyn, *batch))
+        assert torch.isfinite(loss)
     assert graph_steps() == (e0 + 3, c0, r0)
-    assert launches() == launches0
+    assert cuda_lib.LAUNCHES == launches0
     for got, want in zip(_tensors(step), _tensors(ref)):
         assert torch.equal(got, want)
 
@@ -240,3 +234,58 @@ def test_a_new_key_runs_eagerly_then_captures_again(cuda_device):
     # eager, capture + replay, replay; then eager, capture + replay for the
     # shape and for the params; eager, capture + replay, replay for the lr
     assert graph_steps() == (e0 + 4, c0 + 4, r0 + 6)
+
+
+# a kernel no module of the port launches: it adds 1 to each of n floats
+ADD_ONE_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void add_one_kernel(float* x, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) x[i] += 1.0f;
+}
+
+extern "C" int add_one(float* x, int n, cudaStream_t stream) {
+    add_one_kernel<<<(n + 127) / 128, 128, 0, stream>>>(x, n);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_a_new_kernel_is_counted_on_every_replay(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """A step that launches a kernel through ``cuda_lib.launch`` beside its
+    own work: the eager call, the capture and every replay each add one
+    launch of it to ``cuda_lib.LAUNCHES`` and run it once."""
+    import ctypes
+
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "add_one.cu"
+    src.write_text(ADD_ONE_CU)
+    lib = cuda_lib.load("add_one_test", {
+        "add_one": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}, src)
+    lin = torch.nn.Linear(3, 1).to(cuda_device)
+    opt = torch.optim.SGD(lin.parameters(), lr=0.1, momentum=0.9)
+    hits = torch.zeros(5, device=cuda_device)
+
+    def step(x):
+        opt.zero_grad(set_to_none=True)
+        loss = lin(x).square().sum()
+        loss.backward()
+        opt.step()
+        cuda_lib.launch(lib, "add_one", cuda_device, hits.data_ptr(),
+                        hits.numel())
+        return loss.detach()
+
+    graphed = GraphedStep(step, opt)
+    e0, c0, r0 = graph_steps()
+    for i in range(5):
+        before = cuda_lib.LAUNCHES.copy()
+        graphed(torch.full((2, 3), float(i), device=cuda_device))
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES - before == collections.Counter(
+            {"add_one": 1}), i
+        assert torch.equal(hits, torch.full_like(hits, i + 1.0)), i
+    # eager, capture (which also replays), then three replays
+    assert graph_steps() == (e0 + 1, c0 + 1, r0 + 4)

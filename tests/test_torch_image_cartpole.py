@@ -44,7 +44,8 @@ from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
 from apg_trajectory_tracking_tpu_torch.models import image_cartpole as ic
 from apg_trajectory_tracking_tpu_torch.models import resnet_from_jax
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training import (
     train_image_cartpole as tic,
 )
@@ -493,7 +494,7 @@ def test_card_image_fit_matches_cpu(cuda_device):
                for _ in range(2)]
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         data = tic.collect_image_rollouts(None, cartpole_params(MISMATCH),
                                           states0=s0, actions=a, device=dev)
         net, hist, _ = tic.fit_image_dynamics(
@@ -501,7 +502,7 @@ def test_card_image_fit_matches_cpu(cuda_device):
             data=data, net=ic.image_dynamics_from_jax(
                 net_to_jax(net0), tic.IMG_W, tic.IMG_H, device=dev),
             batches=batches, device=dev)
-        assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (0, 0)
+        assert launches() == (0, 0)
         out[dev.type] = ([x.cpu() for x in data], hist, net_to_jax(net))
     for got, want in zip(out["cuda"][0], out["cpu"][0]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -522,9 +523,9 @@ def test_card_image_env_matches_cpu(cuda_device):
         draws = env.draw_resets(torch.Generator().manual_seed(2), (4,))
         steps = [env.draw_resets(torch.Generator().manual_seed(10 + t), (4,))
                  for t in range(5)]
-        R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+        cuda_lib.LAUNCHES.clear()
         run = _image_env_run(env, draws, [x.to(dev) for x in actions], steps)
-        assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (0, 0)
+        assert launches() == (0, 0)
         out[dev.type] = [o.cpu() for o, _ in run]
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=0, atol=ENV_TOL)

@@ -22,6 +22,7 @@ carried across). Tolerances:
     and against the port's own AoS ``quad_step`` bit for bit.
 """
 
+import collections
 import importlib.util
 import json
 import os
@@ -40,8 +41,9 @@ from apg_trajectory_tracking_tpu_torch.evaluation.quad_eval import (
 )
 from apg_trajectory_tracking_tpu_torch.models.common import net_to_jax
 from apg_trajectory_tracking_tpu_torch.models.mlp import control_net_from_jax
-from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.perf import ab, latency, layout, scaling
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     generate_trajectory_bank,
@@ -210,16 +212,16 @@ def test_batched_adam_solve_matches_jax_vmap(J):
 def test_latency_rows_count_launches_per_decision(monkeypatch):
     """``median_ms`` counts the rollout launches of every call, warm-up
     included, as differences: a caller's own count goes on."""
-    monkeypatch.setattr(R, "FORWARD_LAUNCHES", 7)
-    monkeypatch.setattr(R, "BACKWARD_LAUNCHES", 7)
+    monkeypatch.setattr(cuda_lib, "LAUNCHES", collections.Counter(
+        {"quad_rollout_fwd": 7, "quad_rollout_bwd": 7}))
 
     def fake_decision():
-        R.FORWARD_LAUNCHES += 3
-        R.BACKWARD_LAUNCHES += 1
+        cuda_lib.LAUNCHES["quad_rollout_fwd"] += 3
+        cuda_lib.LAUNCHES["quad_rollout_bwd"] += 1
 
     ms, per_call = latency.median_ms(fake_decision, 4, CPU, warmup=2)
     assert ms >= 0 and per_call == (3.0, 1.0)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (25, 13)
+    assert launches() == (25, 13)
 
 
 def test_latency_main_prints_the_scripts_rows(monkeypatch, capsys,
@@ -486,7 +488,7 @@ def test_adam_rows_launch_one_of_each_kernel_per_iteration(cuda_device):
         outs = []
         for dev in (cuda_device, CPU):
             solve = latency.batched_solver(solver, 10, iters, dev)
-            f0, b0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+            f0, b0 = launches()
             u, _, _ = solve(quad_params(device=dev),
                             torch.from_numpy(s).to(dev),
                             latency.padded_windows(
@@ -494,8 +496,8 @@ def test_adam_rows_launch_one_of_each_kernel_per_iteration(cuda_device):
                             torch.zeros((8, 10, 4), device=dev))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-                assert (R.FORWARD_LAUNCHES - f0,
-                        R.BACKWARD_LAUNCHES - b0) == (per, per)
+                f1, b1 = launches()
+                assert (f1 - f0, b1 - b0) == (per, per)
             outs.append(u.cpu().numpy())
         np.testing.assert_allclose(outs[0], outs[1], atol=SOLVE_ATOL)
 

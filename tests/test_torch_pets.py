@@ -43,7 +43,9 @@ from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import (
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 from apg_trajectory_tracking_tpu_torch.evaluation import compare
 from apg_trajectory_tracking_tpu_torch.evaluation import quad_eval, wing_eval
+from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 from apg_trajectory_tracking_tpu_torch.trajectory.generate import (
     generate_trajectory_bank,
     load_trajectory_bank,
@@ -700,9 +702,8 @@ def test_quad_tracking_eval_launches_one_forward_per_step(cuda_device, refs):
     agent = pets.PETS(12, 4, pets.make_quad_tracking_reward(), 0.0, 1.0,
                       device=cuda_device, **SMALL)
     agent.load_model(_fixture("quad_pets", "model_pets"))
-    R.FORWARD_LAUNCHES = R.BACKWARD_LAUNCHES = 0
+    cuda_lib.LAUNCHES.clear()
     roll = pets.eval_pets_quad_tracking(agent, quad_params(), refs[:3],
                                         refs.shape[1] - 10, max_steps=5)
     torch.cuda.synchronize()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (
-        roll["control_steps"], 0)
+    assert launches() == (roll["control_steps"], 0)

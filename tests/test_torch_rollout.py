@@ -1,5 +1,7 @@
-"""The fused rollout: plain twins against the JAX package on the CPU, and
-the CUDA kernels against the twins on the card.
+"""The fused quad rollout: plain twins against the JAX package on the CPU,
+and the CUDA kernels against the twins on the card. Also the refusals of
+both kernel families' wrappers (quad and wing), and ``ops/cuda_lib.py``'s
+build and launch.
 
 The JAX comparisons import JAX inside the test, so this file also collects
 on a machine with a card and no JAX; there the card tests run with
@@ -10,12 +12,19 @@ products over k steps, so their bound is rtol 1e-4 with an atol of 1e-5
 times the gradient's largest magnitude.
 """
 
+import collections
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import wing_params
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 from apg_trajectory_tracking_tpu_torch.ops import rollout as R
+from apg_trajectory_tracking_tpu_torch.ops import wing_rollout as W
+from apg_trajectory_tracking_tpu_torch.perf.common import launches
 
 DT = 0.1
 DRAG = {
@@ -147,7 +156,7 @@ def test_quad_rollout_on_cpu_runs_the_twin(remat):
     params = quad_params(DRAG)
     states, actions, grad_out = _inputs(9, seed=4)
     out_ref, ga_ref, gs_ref = _twin_grads(params, states, actions, grad_out)
-    fwd0, bwd0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+    fwd0, bwd0 = launches()
     s = torch.from_numpy(states).requires_grad_()
     a = torch.from_numpy(actions).requires_grad_()
     out = R.quad_rollout(params, s, a, DT, remat=remat)
@@ -155,21 +164,29 @@ def test_quad_rollout_on_cpu_runs_the_twin(remat):
     np.testing.assert_array_equal(out.detach().numpy(), out_ref.numpy())
     np.testing.assert_allclose(a.grad.numpy(), ga_ref.numpy(), rtol=1e-6)
     np.testing.assert_allclose(s.grad.numpy(), gs_ref.numpy(), rtol=1e-6)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (fwd0, bwd0)
+    assert launches() == (fwd0, bwd0)
 
 
-def test_kernel_wrappers_refuse_cpu_tensors():
-    states, actions, grad_out = _inputs(4)
-    s, a = torch.from_numpy(states), torch.from_numpy(actions)
-    scalars = quad_params().kernel_scalars
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        R.quad_rollout_fwd(s, a, scalars, DT)
-    with pytest.raises(ValueError, match="actions must be"):
-        R.quad_rollout_fwd(s, a[:, 0], scalars, DT)
-    out = R.quad_rollout_reference(quad_params(), s, a, DT)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        R.quad_rollout_bwd(s, a, out, torch.from_numpy(grad_out), scalars,
-                           DT)
+# ---------------------------------------------------------------------------
+# the wrappers' refusals, both kernel families (CPU)
+# ---------------------------------------------------------------------------
+
+
+FAMILIES = pytest.mark.parametrize("family", ["quad", "wing"])
+WING_DT = 0.05
+# the tensor arguments of each family's wrappers, forward and backward
+FWD_ARGS = {"quad": ["states", "actions"],
+            "wing": ["states", "actions", "params"]}
+BWD_ARGS = {family: args + ["states_out", "grad_out"]
+            for family, args in FWD_ARGS.items()}
+ARGS = pytest.mark.parametrize("family,which,backward", [
+    (family, name, backward) for family in FWD_ARGS
+    for backward, args in ((False, FWD_ARGS), (True, BWD_ARGS))
+    for name in args[family]])
+ROW_ARGS = pytest.mark.parametrize("family,which,backward", [
+    (family, name, backward) for family in FWD_ARGS
+    for backward, args in ((False, FWD_ARGS), (True, BWD_ARGS))
+    for name in args[family] if name != "params"])
 
 
 def _offset(x, floats):
@@ -181,43 +198,107 @@ def _offset(x, floats):
     return view
 
 
-def _wrapper_tensors(B=4, k=3, device="cpu"):
-    """The four tensors the kernel wrappers take, by argument name."""
+def _family_params(family, device="cpu"):
+    """The family's params, mismatched (drag, CL_alpha 3.0) -> (params,
+    what the wrappers take of them)."""
+    if family == "quad":
+        params = quad_params(DRAG, device)
+        return params, params.kernel_scalars
+    params = wing_params({"CL_alpha": 3.0}, device)
+    return params, W.pack_wing_params(params)
+
+
+def _wrapper_tensors(family, B=4, k=3, device="cpu"):
+    """The tensors the family's kernel wrappers take, by argument name; the
+    wing's states fly level at 11.5 m/s, roll and pitch inside its 0.7 rad
+    envelope."""
     states, actions, grad_out = (torch.from_numpy(x).to(device)
                                  for x in _inputs(B, k, seed=8))
-    out = torch.zeros(B, k, 12, device=device)
-    return {"states": states, "actions": actions, "states_out": out,
-            "grad_out": grad_out}
+    tensors = {"states": states, "actions": actions,
+               "states_out": torch.zeros(B, k, 12, device=device),
+               "grad_out": grad_out}
+    if family == "wing":
+        states[:, 3] += 11.5
+        states[:, 6:8].clamp_(-0.7, 0.7)
+        tensors["params"] = _family_params("wing", device)[1]
+    return tensors
 
 
-def _call(t, backward):
-    scalars = quad_params().kernel_scalars
+def _call(family, t, backward):
+    if family == "quad":
+        scalars = quad_params(DRAG).kernel_scalars
+        if backward:
+            return R.quad_rollout_bwd(t["states"], t["actions"],
+                                      t["states_out"], t["grad_out"],
+                                      scalars, DT)
+        return R.quad_rollout_fwd(t["states"], t["actions"], scalars, DT)
     if backward:
-        return R.quad_rollout_bwd(t["states"], t["actions"], t["states_out"],
-                                  t["grad_out"], scalars, DT)
-    return R.quad_rollout_fwd(t["states"], t["actions"], scalars, DT)
+        return W.wing_rollout_bwd(t["states"], t["actions"], t["params"],
+                                  t["states_out"], t["grad_out"], WING_DT)
+    return W.wing_rollout_fwd(t["states"], t["actions"], t["params"],
+                              WING_DT)
 
 
-@pytest.mark.parametrize("which,backward", [
-    ("states", False), ("actions", False), ("states", True),
-    ("actions", True), ("states_out", True), ("grad_out", True),
-])
-def test_misaligned_views_are_refused(which, backward):
-    tensors = _wrapper_tensors()
+@FAMILIES
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_kernel_wrappers_refuse_cpu_tensors(family, backward):
+    tensors = _wrapper_tensors(family)
+    with pytest.raises(ValueError, match="states must be a CUDA tensor"):
+        _call(family, tensors, backward)
+    tensors["actions"] = tensors["actions"][:, 0]
+    with pytest.raises(ValueError, match="actions must be"):
+        _call(family, tensors, backward)
+
+
+@ARGS
+def test_wrong_shapes_are_refused(family, which, backward):
+    tensors = _wrapper_tensors(family)
+    tensors[which] = tensors[which][..., :-1].contiguous()
+    with pytest.raises(ValueError, match=f"{which} has shape"):
+        _call(family, tensors, backward)
+
+
+@ARGS
+def test_other_dtypes_are_refused(family, which, backward):
+    tensors = _wrapper_tensors(family)
+    tensors[which] = tensors[which].double()
+    with pytest.raises(ValueError, match=f"{which} must be float32"):
+        _call(family, tensors, backward)
+
+
+@ARGS
+def test_non_contiguous_tensors_are_refused(family, which, backward):
+    tensors = _wrapper_tensors(family)
+    t = tensors[which]
+    # every other element of a tensor twice as long: the same shape
+    tensors[which] = torch.stack([t, t], dim=-1)[..., 0]
+    assert not tensors[which].is_contiguous()
+    with pytest.raises(ValueError, match=f"{which} must be contiguous"):
+        _call(family, tensors, backward)
+
+
+@ROW_ARGS
+def test_misaligned_views_are_refused(family, which, backward):
+    tensors = _wrapper_tensors(family)
     tensors[which] = _offset(tensors[which], 1)  # 4 bytes past 16-aligned
     assert tensors[which].is_contiguous()
     with pytest.raises(ValueError, match=f"{which} must start at a 16-byte"):
-        _call(tensors, backward)
+        _call(family, tensors, backward)
 
 
+def _row_offsets(tensors):
+    """Each row tensor one row into a (B + 1, ...) copy: contiguous, 48 or
+    16k bytes in, so 16-byte aligned; the params as they are."""
+    return {name: _offset(t, t[0].numel()) if name != "params" else t
+            for name, t in tensors.items()}
+
+
+@FAMILIES
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_aligned_offset_views_pass_the_layout_checks(backward):
-    # one row into a (B + 1, ...) tensor is 48 or 16k bytes in: aligned, so
-    # on the CPU only the device check remains to refuse it
-    tensors = {name: _offset(t, t[0].numel())
-               for name, t in _wrapper_tensors().items()}
+def test_aligned_offset_views_pass_the_layout_checks(family, backward):
+    # on the CPU only the device check remains to refuse them
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _call(tensors, backward)
+        _call(family, _row_offsets(_wrapper_tensors(family)), backward)
 
 
 def test_kernel_scalars_follow_params():
@@ -282,6 +363,40 @@ def test_build_raises_on_a_compile_error_and_leaves_no_file(tmp_path,
     assert list((tmp_path / "build").iterdir()) == []
 
 
+def _fake_stream(monkeypatch):
+    """``torch.cuda``'s device guard and current stream, stood in for on a
+    machine without a card: the stream's handle is 1234."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=1234))
+
+
+def test_launch_counts_a_successful_call_under_its_name(monkeypatch):
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    _fake_stream(monkeypatch)
+    monkeypatch.setattr(cuda_lib, "LAUNCHES", collections.Counter())
+    calls = []
+    lib = types.SimpleNamespace(some_kernel=lambda *a: calls.append(a) or 0)
+    for _ in range(2):
+        cuda_lib.launch(lib, "some_kernel", "cuda:0", 7, 8.5)
+    assert calls == [(7, 8.5, 1234)] * 2
+    assert cuda_lib.LAUNCHES == collections.Counter({"some_kernel": 2})
+
+
+def test_launch_raises_on_a_cuda_error_and_counts_nothing(monkeypatch):
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    _fake_stream(monkeypatch)
+    monkeypatch.setattr(cuda_lib, "LAUNCHES", collections.Counter())
+    lib = types.SimpleNamespace(some_kernel=lambda *a: 700)
+    with pytest.raises(RuntimeError,
+                       match="some_kernel launch failed: CUDA error 700"):
+        cuda_lib.launch(lib, "some_kernel", "cuda:0", 7)
+    assert cuda_lib.LAUNCHES == collections.Counter()
+
+
 # ---------------------------------------------------------------------------
 # kernels vs plain twins (card only)
 # ---------------------------------------------------------------------------
@@ -296,10 +411,10 @@ def test_forward_kernel_matches_twin(cuda_device, mods, B, k):
     states, actions, _ = _inputs(B, k, seed=5)
     s = torch.from_numpy(states).to(cuda_device)
     a = torch.from_numpy(actions).to(cuda_device)
-    before = R.FORWARD_LAUNCHES
+    before = launches()
     out = R.quad_rollout_fwd(s, a, params.kernel_scalars, DT)
     torch.cuda.synchronize()
-    assert R.FORWARD_LAUNCHES == before + 1
+    assert launches() == (before[0] + 1, before[1])
     want = R.quad_rollout_reference(params, s, a, DT)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
@@ -315,11 +430,11 @@ def test_backward_kernel_matches_plain(cuda_device, mods, B, k):
         torch.from_numpy(x).to(cuda_device) for x in _inputs(B, k, seed=6)
     )
     out = R.quad_rollout_fwd(states, actions, params.kernel_scalars, DT)
-    before = R.BACKWARD_LAUNCHES
+    before = launches()
     ga, gs = R.quad_rollout_bwd(states, actions, out, grad_out,
                                 params.kernel_scalars, DT)
     torch.cuda.synchronize()
-    assert R.BACKWARD_LAUNCHES == before + 1
+    assert launches() == (before[0], before[1] + 1)
     ga_ref, gs_ref = R.quad_rollout_backward_reference(
         params, states, actions, out, grad_out, DT
     )
@@ -335,51 +450,64 @@ def test_quad_rollout_autograd_on_card_matches_twin(cuda_device):
                                     grad_out)
     s = torch.from_numpy(states).to(cuda_device).requires_grad_()
     a = torch.from_numpy(actions).to(cuda_device).requires_grad_()
-    fwd0, bwd0 = R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES
+    fwd0, bwd0 = launches()
     R.quad_rollout(params, s, a, DT).backward(
         torch.from_numpy(grad_out).to(cuda_device)
     )
     torch.cuda.synchronize()
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == (fwd0 + 1, bwd0 + 1)
+    assert launches() == (fwd0 + 1, bwd0 + 1)
     _assert_grad_close(a.grad.cpu().numpy(), ga_ref.numpy())
     _assert_grad_close(s.grad.cpu().numpy(), gs_ref.numpy())
 
 
 @pytest.mark.cuda
-def test_kernels_take_an_aligned_offset_view(cuda_device):
-    # big[1:] of (B + 1, ...) tensors: contiguous, 48 or 16k bytes in
-    params = quad_params(DRAG, cuda_device)
-    fresh = _wrapper_tensors(B=33, k=11, device=cuda_device)
-    fresh["states_out"] = R.quad_rollout_fwd(
-        fresh["states"], fresh["actions"], params.kernel_scalars, DT)
-    views = {name: _offset(t, t[0].numel()) for name, t in fresh.items()}
-    out = R.quad_rollout_fwd(views["states"], views["actions"],
-                             params.kernel_scalars, DT)
-    ga, gs = R.quad_rollout_bwd(views["states"], views["actions"],
-                                views["states_out"], views["grad_out"],
-                                params.kernel_scalars, DT)
+@FAMILIES
+def test_kernels_take_an_aligned_offset_view(cuda_device, family):
+    params, _ = _family_params(family, cuda_device)
+    dt = DT if family == "quad" else WING_DT
+    reference, backward_reference = (
+        (R.quad_rollout_reference, R.quad_rollout_backward_reference)
+        if family == "quad" else
+        (W.wing_rollout_reference, W.wing_rollout_backward_reference))
+    fresh = _wrapper_tensors(family, B=33, k=11, device=cuda_device)
+    fresh["states_out"] = _call(family, fresh, backward=False)
+    views = _row_offsets(fresh)
+    out = _call(family, views, backward=False)
+    ga, gs = _call(family, views, backward=True)
     torch.cuda.synchronize()
-    want = R.quad_rollout_reference(params, fresh["states"],
-                                    fresh["actions"], DT)
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  fresh["states_out"].cpu().numpy())
+    want = reference(params, fresh["states"], fresh["actions"], dt)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
-    ga_ref, gs_ref = R.quad_rollout_backward_reference(
+    ga_ref, gs_ref = backward_reference(
         params, fresh["states"], fresh["actions"], fresh["states_out"],
-        fresh["grad_out"], DT,
-    )
+        fresh["grad_out"], dt)
     _assert_grad_close(ga.cpu().numpy(), ga_ref.cpu().numpy())
     _assert_grad_close(gs.cpu().numpy(), gs_ref.cpu().numpy())
 
 
 @pytest.mark.cuda
+@FAMILIES
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_kernels_refuse_a_misaligned_view(cuda_device, backward):
-    tensors = _wrapper_tensors(B=33, k=11, device=cuda_device)
-    before = (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES)
-    for name in tensors:
+def test_kernels_refuse_a_misaligned_view(cuda_device, family, backward):
+    from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+
+    tensors = _wrapper_tensors(family, B=33, k=11, device=cuda_device)
+    before = cuda_lib.LAUNCHES.copy()
+    for name in ("states", "actions", "states_out", "grad_out"):
         if name in ("states_out", "grad_out") and not backward:
             continue
         bad = dict(tensors, **{name: _offset(tensors[name], 1)})
         with pytest.raises(ValueError, match=f"{name} must start at a 16"):
-            _call(bad, backward)
-    assert (R.FORWARD_LAUNCHES, R.BACKWARD_LAUNCHES) == before
+            _call(family, bad, backward)
+    assert cuda_lib.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_params_on_another_device_are_refused(cuda_device, backward):
+    tensors = _wrapper_tensors("wing", device=cuda_device)
+    tensors["params"] = tensors["params"].cpu()
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        _call("wing", tensors, backward)

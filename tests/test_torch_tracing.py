@@ -1,22 +1,19 @@
 """The port's spans (``utils/debug.span``): off by default and then a
 shared no-op, on under a profiler window or after ``enable()``, stamped on
-the profiler's clock, kept in a bounded ring, and placed in the concurrent
-train step and ``TrainQuad.fit`` without changing what they compute."""
+the profiler's clock, kept in a bounded ring, and placed in the train step
+of each of the four APG step builders and in ``TrainQuad.fit`` without
+changing what they compute."""
 
-import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
-from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
 from apg_trajectory_tracking_tpu_torch.parallel.mesh import auto_mesh
 from apg_trajectory_tracking_tpu_torch.training import train_quad
-from apg_trajectory_tracking_tpu_torch.training.common import (
-    load_config,
-    sgd_momentum,
-)
+from apg_trajectory_tracking_tpu_torch.training.common import load_config
 from apg_trajectory_tracking_tpu_torch.utils import debug
+import apg_train_steps as train_steps
+from apg_train_steps import weights_and_momentum
 
 BATCH = 16
 
@@ -128,25 +125,17 @@ def test_the_ring_is_bounded():
     assert records[-1].id - records[0].id == debug.RING - 1
 
 
-def _step_setup(mesh=None):
-    net = ControlNet(15, 10, 9, 40, hidden=16, conv=True,
-                     generator=torch.Generator().manual_seed(3))
-    opt = sgd_momentum(net.parameters(), 1e-5)
-    step = train_quad.build_concurrent_step(net, opt, 0.1, 10, mesh=mesh)
-    rng = np.random.RandomState(5)
-    states = torch.from_numpy(
-        rng.randn(BATCH, 12).astype(np.float32) * 0.3)
-    refs = torch.from_numpy(
-        rng.randn(BATCH, 10, 9).astype(np.float32) * 0.3)
-    return net, step, (quad_params(device="cpu"), states, refs)
-
-
 @pytest.mark.parametrize("with_mesh", [False, True])
-def test_one_step_gives_the_phase_tree(with_mesh):
+@pytest.mark.parametrize("builder", train_steps.BUILDERS)
+def test_one_step_gives_the_phase_tree(builder, with_mesh):
+    """An eager call of each builder's step leaves ``train_step`` ⊃
+    ``forward`` (⊃ the loss's own spans), ``backward``, ``all_reduce``
+    (with a mesh) and ``optimizer``."""
     mesh = auto_mesh(BATCH) if with_mesh else None
-    _, step, args = _step_setup(mesh)
+    step, = train_steps.build(builder, n=1, mesh=mesh)
+    batch, = train_steps.batches(builder, BATCH, n=1)
     debug.enable()
-    step(*args)
+    step(train_steps.dyn(builder), *batch)
     records = debug.spans()
     _well_formed(records)
     top = _only(records, "train_step")
@@ -154,30 +143,30 @@ def test_one_step_gives_the_phase_tree(with_mesh):
     middle = ["all_reduce"] if with_mesh else []
     assert _children(records, top.id) == ["forward", "backward", *middle,
                                           "optimizer"]
-    assert _children(records, _only(records, "forward").id) == [
-        "featurize", "net", "unroll", "loss"]
-    assert len(records) == 8 + len(middle)
-
-
-def _loss_and_weights(mode):
-    net, step, args = _step_setup()
-    if mode == "enable":
-        debug.enable()
-    if mode == "profiler":
-        with _cpu_profile():
-            losses = [step(*args) for _ in range(2)]
-    else:
-        losses = [step(*args) for _ in range(2)]
-    debug.enable(False)
-    return losses, [p.detach().clone() for p in net.parameters()]
+    inner = train_steps.LOSS_SPANS[builder]
+    assert _children(records, _only(records, "forward").id) == inner
+    assert len(records) == 4 + len(middle) + len(inner)
 
 
 @pytest.mark.parametrize("mode", ["enable", "profiler"])
-def test_a_traced_step_computes_the_same_bits(mode):
-    want_losses, want_weights = _loss_and_weights("off")
-    losses, weights = _loss_and_weights(mode)
+@pytest.mark.parametrize("builder", train_steps.BUILDERS)
+def test_a_traced_step_computes_the_same_bits(builder, mode):
+    """Two steps with spans recorded and two without, from the same
+    weights: the same losses, weights and momentum."""
+    on, off = train_steps.build(builder)
+    dyn = train_steps.dyn(builder)
+    batches = train_steps.batches(builder, BATCH, n=2)
+    if mode == "enable":
+        debug.enable()
+        losses_on = [on(dyn, *b) for b in batches]
+    else:
+        with _cpu_profile():
+            losses_on = [on(dyn, *b) for b in batches]
+    debug.enable(False)
+    losses_off = [off(dyn, *b) for b in batches]
     assert debug.spans()
-    for got, want in zip(losses + weights, want_losses + want_weights):
+    for got, want in zip(losses_on + weights_and_momentum(on),
+                         losses_off + weights_and_momentum(off)):
         assert torch.equal(got, want)
 
 

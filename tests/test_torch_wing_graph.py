@@ -1,11 +1,10 @@
 """The fixed-wing train step replayed from a CUDA graph
-(``training.common.GraphedStep``, built by ``train_wing.build_wing_step``),
-its spans and the spans of ``TrainWing.fit``.
+(``training.common.GraphedStep``, built by ``train_wing.build_wing_step``)
+and the spans of ``TrainWing.fit``. Its gate, its host route and its spans
+are tested with the other builders' (``test_torch_graph_step.py``,
+``test_torch_tracing.py``).
 
-On the host every route runs eagerly and computes what the eager step
-computes, bit for bit. The graph engages only with the analytic
-``wing_step`` (a learnt model, as ``TrainWingAdapt`` trains against,
-changes between steps) and with no collective. On the card (``cuda``
+On the card (``cuda``
 marker; ``python -m pytest --noconftest tests/test_torch_wing_graph.py -m
 cuda``) the graphed step is held to the eager step from the same weights
 on the same minibatches, bit for bit: the replay runs the eager step's
@@ -15,34 +14,23 @@ counters over a run of steps, a new batch shape, and ``TrainWing.fit``
 capturing once for all its epochs. This file imports no JAX, so that it
 also runs on the card's machine."""
 
-import copy
-
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
-from apg_trajectory_tracking_tpu_torch.data.dataset import WING_MEAN, WING_STD
 from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import wing_params
-from apg_trajectory_tracking_tpu_torch.dynamics.learnt import make_learnt_wing
-from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
-from apg_trajectory_tracking_tpu_torch.parallel import mesh as M
 from apg_trajectory_tracking_tpu_torch.perf.common import (
     graph_steps,
     launches,
     wing_launches,
 )
 from apg_trajectory_tracking_tpu_torch.training import train_wing
-from apg_trajectory_tracking_tpu_torch.training.adapt import wing_learnt_step
-from apg_trajectory_tracking_tpu_torch.training.common import (
-    GraphedStep,
-    load_config,
-    sgd_momentum,
-)
+from apg_trajectory_tracking_tpu_torch.training.common import load_config
 from apg_trajectory_tracking_tpu_torch.utils import debug
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
+import apg_train_steps as train_steps
+from apg_train_steps import weights_and_momentum as _tensors
 
-DT, HORIZON, LR = 0.05, 10, 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -54,47 +42,17 @@ def _spans_off():
     debug.clear()
 
 
-def _net(device):
-    net = ControlNet(9, 1, 3, 4 * HORIZON, hidden=64, conv=False,
-                     generator=torch.Generator().manual_seed(3))
-    return net.to(device)
+def _pair(device, n=2, **kwargs):
+    """The step under test and more from the same weights -> (step,
+    reference, ...); each is compared through the reference's ``.eager``."""
+    return train_steps.build("wing", device, n, **kwargs)
 
 
 def _batches(batch, device, n=6, seed=0):
     """(states, targets) minibatches: level flight at 11.5 m/s with small
     perturbations, targets 50 m ahead within 5 m to the side and in
     height."""
-    out = []
-    for i in range(n):
-        rng = np.random.RandomState(seed + i)
-        states = np.zeros((batch, 12), np.float32)
-        states[:, 3] = 11.5
-        states[:, 3:] += rng.randn(batch, 9).astype(np.float32) * 0.1
-        targets = np.concatenate(
-            [np.full((batch, 1), 50.0), (rng.rand(batch, 2) - 0.5) * 10],
-            axis=1).astype(np.float32)
-        out.append((torch.from_numpy(states).to(device),
-                    torch.from_numpy(targets).to(device)))
-    return out
-
-
-def _pair(device, n=2, **kwargs):
-    """The step under test and more from the same weights -> (step,
-    reference, ...); each is compared through the reference's ``.eager``."""
-    net = _net(device)
-    mean = torch.as_tensor(WING_MEAN, device=device)
-    std = torch.as_tensor(WING_STD, device=device)
-    return tuple(train_wing.build_wing_step(
-        m, sgd_momentum(m.parameters(), LR), DT, DT, HORIZON, mean, std,
-        **kwargs)
-        for m in [net] + [copy.deepcopy(net) for _ in range(n - 1)])
-
-
-def _tensors(step):
-    """The step's weights and momentum buffers."""
-    params = step.optimizer.param_groups[0]["params"]
-    return [p.detach() for p in params] + [
-        step.optimizer.state[p]["momentum_buffer"] for p in params]
+    return train_steps.batches("wing", batch, device, n, seed)
 
 
 def _children(records, parent):
@@ -109,89 +67,8 @@ def _only(records, name):
 
 
 # ---------------------------------------------------------------------------
-# the host: every route eager
+# the host
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def group_of_one(tmp_path_factory):
-    """A gloo process group of one in this process, for one test."""
-    store = tmp_path_factory.mktemp("group") / "store"
-    M.init_distributed(f"file://{store}", 1, 0, backend="gloo")
-    yield M.make_mesh()
-    dist.destroy_process_group()
-
-
-@pytest.mark.parametrize("route, graphable", [
-    ("default", True), ("mesh_of_one", True), ("learnt", False),
-    ("collective", False)])
-def test_the_gate_and_the_host_route(route, graphable, request):
-    """``build_wing_step`` returns a ``GraphedStep`` that may engage only
-    on the analytic wing and with no collective; on the host every call
-    runs eagerly, is counted as eager and computes the eager step's
-    bits."""
-    kwargs = {}
-    dyn = wing_params(device="cpu")
-    if route == "mesh_of_one":
-        kwargs["mesh"] = M.auto_mesh(8)
-    elif route == "learnt":
-        kwargs["dyn_step"] = wing_learnt_step
-        dyn, _ = make_learnt_wing(torch.Generator().manual_seed(1),
-                                  std=1e-4)
-    elif route == "collective":
-        kwargs["mesh"] = request.getfixturevalue("group_of_one")
-    step, ref = _pair("cpu", **kwargs)
-    assert isinstance(step, GraphedStep) and step.graphable is graphable
-    e0, c0, r0 = graph_steps()
-    for states, targets in _batches(8, "cpu", n=3):
-        assert step._key_of((dyn, states, targets)) is None
-        loss = step(dyn, states, targets)
-        assert torch.equal(loss, ref.eager(dyn, states, targets))
-        assert torch.isfinite(loss)
-    assert graph_steps() == (e0 + 3, c0, r0)
-    for got, want in zip(_tensors(step), _tensors(ref)):
-        assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("with_mesh", [False, True])
-def test_one_step_gives_the_phase_tree(with_mesh):
-    """An eager call leaves ``train_step`` ⊃ ``forward`` (⊃
-    ``featurize``, ``net``, ``unroll``, ``loss``), ``backward``,
-    ``all_reduce`` (with a mesh) and ``optimizer``."""
-    mesh = M.auto_mesh(8) if with_mesh else None
-    step, = _pair("cpu", n=1, mesh=mesh)
-    (states, targets), = _batches(8, "cpu", n=1)
-    debug.enable()
-    step(wing_params(device="cpu"), states, targets)
-    records = debug.spans()
-    top = _only(records, "train_step")
-    assert top.parent is None
-    middle = ["all_reduce"] if with_mesh else []
-    assert _children(records, top.id) == ["forward", "backward", *middle,
-                                          "optimizer"]
-    assert _children(records, _only(records, "forward").id) == [
-        "featurize", "net", "unroll", "loss"]
-    assert len(records) == 8 + len(middle)
-    for r in records:
-        if r.parent is not None:
-            parent = next(p for p in records if p.id == r.parent)
-            assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
-
-
-def test_spans_change_no_bit():
-    """Two steps with spans recorded and two without, from the same
-    weights: the same losses, weights and momentum."""
-    on, off = _pair("cpu")
-    dyn = wing_params(device="cpu")
-    batches = _batches(8, "cpu", n=2)
-    debug.enable()
-    losses_on = [on(dyn, *b) for b in batches]
-    debug.enable(False)
-    losses_off = [off(dyn, *b) for b in batches]
-    assert debug.spans()
-    for got, want in zip(losses_on + _tensors(on),
-                         losses_off + _tensors(off)):
-        assert torch.equal(got, want)
 
 
 def test_fit_gives_the_epoch_tree(tmp_path, monkeypatch):

@@ -1,7 +1,9 @@
 """The fused fixed-wing rollout (``ops/wing_rollout.py``): the hand-derived
 backward against autograd and against the JAX package on the CPU, the
-wrappers' refusals, the host route of ``train_wing.wing_loss``, and the
-CUDA kernels against the plain versions on the card.
+packed params and their refusal of gradients, the host route of
+``train_wing.wing_loss``, and the CUDA kernels against the plain versions
+on the card. The wrappers' layout and device refusals are tested with the
+quad's, in ``test_torch_rollout.py``.
 
 The JAX comparisons import JAX inside the test, so this file also collects
 on a machine with a card and no JAX; there the card tests run with
@@ -182,7 +184,7 @@ def test_backward_reference_matches_jax_vjp(mods, outside, k):
 
 
 # ---------------------------------------------------------------------------
-# dispatch, the packed params and the wrappers' refusals (CPU)
+# dispatch and the packed params (CPU)
 # ---------------------------------------------------------------------------
 
 
@@ -220,83 +222,6 @@ def test_params_that_require_grad_are_refused(field):
         p, **{field: getattr(p, field).clone().requires_grad_()})
     with pytest.raises(ValueError, match=f"WingParams.{field} requires grad"):
         W.pack_wing_params(p)
-
-
-def _offset(x, floats):
-    """A contiguous copy of ``x`` that starts ``floats`` floats into its
-    storage."""
-    flat = torch.zeros(x.numel() + floats, dtype=x.dtype, device=x.device)
-    view = flat[floats:].view(x.shape)
-    view.copy_(x)
-    return view
-
-
-def _wrapper_tensors(B=4, k=3, device="cpu"):
-    """The tensors the kernel wrappers take, by argument name."""
-    states, actions, grad_out = (torch.from_numpy(x).to(device)
-                                 for x in _inputs(B, k, seed=8))
-    return {"states": states, "actions": actions,
-            "params": W.pack_wing_params(wing_params(device=device)),
-            "states_out": torch.zeros(B, k, 12, device=device),
-            "grad_out": grad_out}
-
-
-def _call(t, backward):
-    if backward:
-        return W.wing_rollout_bwd(t["states"], t["actions"], t["params"],
-                                  t["states_out"], t["grad_out"], DT)
-    return W.wing_rollout_fwd(t["states"], t["actions"], t["params"], DT)
-
-
-FWD_ARGS = ["states", "actions", "params"]
-BWD_ARGS = FWD_ARGS + ["states_out", "grad_out"]
-ARGS = pytest.mark.parametrize("which,backward", [
-    *((name, False) for name in FWD_ARGS),
-    *((name, True) for name in BWD_ARGS)])
-
-
-@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_kernel_wrappers_refuse_cpu_tensors(backward):
-    with pytest.raises(ValueError, match="states must be a CUDA tensor"):
-        _call(_wrapper_tensors(), backward)
-
-
-@ARGS
-def test_wrong_shapes_are_refused(which, backward):
-    tensors = _wrapper_tensors()
-    tensors[which] = tensors[which][..., :-1].contiguous()
-    with pytest.raises(ValueError, match=f"{which} has shape"):
-        _call(tensors, backward)
-
-
-@ARGS
-def test_other_dtypes_are_refused(which, backward):
-    tensors = _wrapper_tensors()
-    tensors[which] = tensors[which].double()
-    with pytest.raises(ValueError, match=f"{which} must be float32"):
-        _call(tensors, backward)
-
-
-@ARGS
-def test_non_contiguous_tensors_are_refused(which, backward):
-    tensors = _wrapper_tensors()
-    t = tensors[which]
-    # every other element of a tensor twice as long: the same shape
-    tensors[which] = torch.stack([t, t], dim=-1)[..., 0]
-    assert not tensors[which].is_contiguous()
-    with pytest.raises(ValueError, match=f"{which} must be contiguous"):
-        _call(tensors, backward)
-
-
-@pytest.mark.parametrize("which,backward", [
-    ("states", False), ("actions", False), ("states", True),
-    ("actions", True), ("states_out", True), ("grad_out", True)])
-def test_misaligned_views_are_refused(which, backward):
-    tensors = _wrapper_tensors()
-    tensors[which] = _offset(tensors[which], 1)  # 4 bytes past 16-aligned
-    assert tensors[which].is_contiguous()
-    with pytest.raises(ValueError, match=f"{which} must start at a 16-byte"):
-        _call(tensors, backward)
 
 
 def test_kernel_work_counts():
@@ -446,42 +371,6 @@ def test_nan_at_zero_forward_speed_stays_nan(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernels_take_an_aligned_offset_view(cuda_device):
-    # big[1:] of (B + 1, ...) tensors: contiguous, 48 or 16k bytes in
-    params = wing_params(MISMATCH, cuda_device)
-    fresh = _wrapper_tensors(B=33, k=11, device=cuda_device)
-    fresh["params"] = W.pack_wing_params(params)
-    fresh["states_out"] = W.wing_rollout_fwd(
-        fresh["states"], fresh["actions"], fresh["params"], DT)
-    views = {name: _offset(t, t[0].numel()) if name != "params" else t
-             for name, t in fresh.items()}
-    out = _call(views, backward=False)
-    ga, gs = _call(views, backward=True)
-    torch.cuda.synchronize()
-    np.testing.assert_array_equal(out.cpu().numpy(),
-                                  fresh["states_out"].cpu().numpy())
-    ga_ref, gs_ref = W.wing_rollout_backward_reference(
-        params, fresh["states"], fresh["actions"], fresh["states_out"],
-        fresh["grad_out"], DT)
-    _assert_grad_close(ga.cpu().numpy(), ga_ref.cpu().numpy())
-    _assert_grad_close(gs.cpu().numpy(), gs_ref.cpu().numpy())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_kernels_refuse_a_misaligned_view(cuda_device, backward):
-    tensors = _wrapper_tensors(B=33, k=11, device=cuda_device)
-    before = wing_launches()
-    for name in ("states", "actions", "states_out", "grad_out"):
-        if name in ("states_out", "grad_out") and not backward:
-            continue
-        bad = dict(tensors, **{name: _offset(tensors[name], 1)})
-        with pytest.raises(ValueError, match=f"{name} must start at a 16"):
-            _call(bad, backward)
-    assert wing_launches() == before
-
-
-@pytest.mark.cuda
 def test_a_params_tensor_that_requires_grad_is_refused_on_card(cuda_device):
     p = wing_params(device=cuda_device)
     p = dataclasses.replace(p, coeffs=p.coeffs.clone().requires_grad_())
@@ -489,13 +378,3 @@ def test_a_params_tensor_that_requires_grad_is_refused_on_card(cuda_device):
                           for x in _inputs(8))
     with pytest.raises(ValueError, match="requires grad"):
         W.wing_rollout(p, states, actions, DT)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-def test_params_on_another_device_are_refused(cuda_device, backward):
-    tensors = _wrapper_tensors(device=cuda_device)
-    tensors["params"] = tensors["params"].cpu()
-    with pytest.raises(ValueError, match="params lie on cpu"):
-        _call(tensors, backward)
-
