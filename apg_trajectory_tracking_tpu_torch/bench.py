@@ -31,19 +31,20 @@ Defaults: 48 steps x 8 windows at B <= 4096, 20 x 4 above.
 Roofline, counted from shapes (XLA's cost analysis has no counterpart),
 from two more steps on a copy of the net before the warm window:
 
-  * ``flops_per_step``: the matmul and convolution flops of the step,
-    forward and backward, as ``torch.utils.flop_counter.FlopCounterMode``
-    counts them, plus the rollout kernels' operations from their per-row
-    step counts (``ops/rollout.py``). Elementwise ops outside the kernels
-    are left out (``flops_note``);
+  * ``flops_per_step``: the matmul flops of the step, forward and
+    backward, as ``torch.utils.flop_counter.FlopCounterMode`` counts them,
+    plus the rollout kernels' operations from their per-row step counts
+    (``ops/rollout.py``) and the reference branch's convolution flops as
+    FlopCounterMode counts a convolution (``ops/conv_ref.conv_ref_ops``).
+    Elementwise ops outside the kernels are left out (``flops_note``);
   * ``hbm_bytes_per_step``: nominal traffic, the bytes of every tensor that
     an op of the second step (the momentum buffers made) reads or writes,
     counted by a ``TorchDispatchMode``: each eager op is a kernel that reads
     its inputs from HBM and writes its outputs there, L2 aside. Views and
-    allocations move nothing. The unroll
-    counts by the kernels' formula (each input read once, each output
-    written once), never by the ops of its plain twin, so the count is the
-    same on the CPU and on the card;
+    allocations move nothing. The unroll and the net's reference branch
+    count by their kernels' formula (each input read once, each output
+    written once), never by the ops of their plain twins, so the count is
+    the same on the CPU and on the card;
   * ``min_bytes_per_step``: the states and references read once, the
     parameters and the momentum read and written once;
   * ``mfu`` against the card's bf16 dense peak (``bench.py``'s convention,
@@ -61,16 +62,26 @@ peak-based number.
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import os
 import time
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (
+    TorchDispatchMode,
+    _disable_current_modes,
+)
 from torch.utils.flop_counter import FlopCounterMode
 
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
+from apg_trajectory_tracking_tpu_torch.models import mlp
+from apg_trajectory_tracking_tpu_torch.ops.conv_ref import (
+    conv_ref_bytes,
+    conv_ref_ops,
+    conv_ref_relu,
+)
 from apg_trajectory_tracking_tpu_torch.ops.rollout import (
     quad_rollout,
     rollout_bytes,
@@ -208,8 +219,8 @@ class _CountedUnroll(torch.autograd.Function):
             ctx.graph = (counts, s, a, out)
             batch, k = actions.shape[:2]
             fwd_bytes, _ = rollout_bytes(batch, k)
-            counts["rollout_bytes"] += fwd_bytes
-            counts["rollout_ops"] += sum(rollout_ops(batch, k))
+            counts["kernel_bytes"] += fwd_bytes
+            counts["kernel_ops"] += sum(rollout_ops(batch, k))
             return out.detach()
 
     @staticmethod
@@ -217,8 +228,55 @@ class _CountedUnroll(torch.autograd.Function):
         counts, s, a, out = ctx.graph
         with counts["traffic"].paused():
             grad_s, grad_a = torch.autograd.grad(out, (s, a), grad_out)
-        counts["rollout_bytes"] += rollout_bytes(*a.shape[:2])[1]
+        counts["kernel_bytes"] += rollout_bytes(*a.shape[:2])[1]
         return None, None, grad_s, grad_a, None
+
+
+class _CountedConv(torch.autograd.Function):
+    """The nets' reference branch (``ops/conv_ref.conv_ref_relu``) with
+    every counter off in its forward and its backward, so that its plain
+    twin's convolution, bias and ReLU on the host and its launches'
+    allocations on the card are not counted; its kernels' operations and
+    bytes are added by formula, each once: the forward, the weight
+    gradient where the weight or the bias needs one, the input gradient
+    where the window does."""
+
+    @staticmethod
+    def forward(ctx, counts, ref, weight, bias):
+        with _disable_current_modes():
+            leaves = [t.detach().requires_grad_(t.requires_grad)
+                      for t in (ref, weight, bias)]
+            with torch.enable_grad():
+                out = conv_ref_relu(*leaves)
+        ctx.graph = (counts, leaves, out)
+        ctx.widths = (*ref.shape, weight.shape[0], weight.shape[2])
+        counts["kernel_bytes"] += conv_ref_bytes(*ctx.widths)[0]
+        counts["kernel_ops"] += conv_ref_ops(*ctx.widths)[0]
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        counts, leaves, out = ctx.graph
+        need = ctx.needs_input_grad[1:]
+        with _disable_current_modes():
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], grad_out))
+        nbytes, ops = conv_ref_bytes(*ctx.widths), conv_ref_ops(*ctx.widths)
+        for i, on in ((1, need[1] or need[2]), (2, need[0])):
+            if on:
+                counts["kernel_bytes"] += nbytes[i]
+                counts["kernel_ops"] += ops[i]
+        return (None, *(next(grads) if n else None for n in need))
+
+
+@contextlib.contextmanager
+def _counted_branch(counts):
+    """The net's reference branch through :class:`_CountedConv` inside."""
+    mlp.conv_ref_relu = functools.partial(_CountedConv.apply, counts)
+    try:
+        yield
+    finally:
+        mlp.conv_ref_relu = conv_ref_relu
 
 
 def count_step(net, dyn, states, refs):
@@ -226,23 +284,24 @@ def count_step(net, dyn, states, refs):
     creates the momentum buffers) -> (flops, nominal bytes, minimum bytes)
     per step."""
     net = copy.deepcopy(net)
-    counts = {"traffic": TrafficMode(), "rollout_bytes": 0, "rollout_ops": 0}
+    counts = {"traffic": TrafficMode(), "kernel_bytes": 0, "kernel_ops": 0}
 
     def unroll(dyn_params, current, actions, dt):
         return _CountedUnroll.apply(counts, dyn_params, current, actions, dt)
 
     step = make_step(net, unroll)
-    step(dyn, states, refs)
-    counts.update(rollout_bytes=0, rollout_ops=0)
-    flop_counter = FlopCounterMode(display=False)
-    with flop_counter, counts["traffic"]:
+    with _counted_branch(counts):
         step(dyn, states, refs)
+        counts.update(kernel_bytes=0, kernel_ops=0)
+        flop_counter = FlopCounterMode(display=False)
+        with flop_counter, counts["traffic"]:
+            step(dyn, states, refs)
     sync(states.device)
     n_params = sum(p.numel() for p in net.parameters())
     # parameters and momentum (float32), each read and written once
     min_bytes = _nbytes([states, refs]) + 4 * n_params * 4
-    return (flop_counter.get_total_flops() + counts["rollout_ops"],
-            counts["traffic"].bytes + counts["rollout_bytes"], min_bytes)
+    return (flop_counter.get_total_flops() + counts["kernel_ops"],
+            counts["traffic"].bytes + counts["kernel_bytes"], min_bytes)
 
 
 def measure(net0, batch, iters, repeats, device):

@@ -3,7 +3,8 @@ package's ``models/mlp.py``).
 
   * state branch: Linear(state_dim -> hidden) + tanh
   * reference branch: Conv1d(ref_dim -> 20, k=3) + relu over the horizon
-    (quad, ``conv=True``) or Linear(horizon*ref_dim -> hidden) + tanh
+    (quad, ``conv=True``; ``ops/conv_ref.conv_ref_relu``, hand-written
+    kernels on the card) or Linear(horizon*ref_dim -> hidden) + tanh
     (wing, ``conv=False``)
   * trunk: 3 x (Linear(hidden) + tanh), then Linear -> out_dim logits.
 
@@ -23,6 +24,7 @@ from apg_trajectory_tracking_tpu_torch.models.common import (
     load_from_jax,
     net_to_jax,
 )
+from apg_trajectory_tracking_tpu_torch.ops.conv_ref import conv_ref_relu
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
 CONV_CHANNELS = 20
@@ -53,7 +55,7 @@ class ControlNet(nn.Module):
             ref = ref[:, None, :]
         s = torch.tanh(self.states_in(state))
         if self.conv:
-            r = torch.relu(self.conv_ref(ref.transpose(1, 2)))
+            r = conv_ref_relu(ref, self.conv_ref.weight, self.conv_ref.bias)
             r = r.reshape(r.shape[0], -1)
         else:
             r = torch.tanh(self.ref_in(ref.reshape(ref.shape[0], -1)))

@@ -1,7 +1,8 @@
 """Recurrent (LSTM-cell) controller of the quad LSTM training mode
 (counterpart of the JAX package's ``models/rnn.py``).
 
-  * the Conv1d reference head of the feed-forward net;
+  * the Conv1d reference head of the feed-forward net
+    (``ops/conv_ref.conv_ref_relu``);
   * an LSTM cell (state_dim + 20*(horizon-2) -> hidden, gates i, f, g, o);
   * Linear(hidden -> action_dim) output.
 
@@ -26,6 +27,7 @@ from apg_trajectory_tracking_tpu_torch.models.common import (
     uniform_parameter,
 )
 from apg_trajectory_tracking_tpu_torch.models.mlp import CONV_CHANNELS
+from apg_trajectory_tracking_tpu_torch.ops.conv_ref import conv_ref_relu
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
 HIDDEN = 8
@@ -56,7 +58,7 @@ class LSTMNet(nn.Module):
         """One recurrent step: carry (h, c) each (B, hidden), state
         (B, state_dim), ref (B, horizon, ref_dim) -> (new carry, logits
         (B, action_dim))."""
-        r = torch.relu(self.conv_ref(ref.transpose(1, 2)))
+        r = conv_ref_relu(ref, self.conv_ref.weight, self.conv_ref.bias)
         inp = torch.cat([state, r.reshape(r.shape[0], -1)], dim=-1)
         h, c = carry
         gates = inp @ self.w_ih + self.b_ih + h @ self.w_hh + self.b_hh

@@ -29,8 +29,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# alignment the kernels need of every tensor's first element: they copy
-# rows between global and shared memory in 16-byte units
+# alignment the rollout kernels need of every tensor's first element: they
+# copy rows between global and shared memory in 16-byte units
 ALIGN_BYTES = 16
 # successful launches of each kernel, by C function name. A replayed CUDA
 # graph launches nothing from the host: training.common.GraphedStep adds
@@ -98,10 +98,10 @@ def load(name, signatures, src=None):
     return _LIBS[name]
 
 
-def check_args(shapes, **tensors):
+def check_args(shapes, align=ALIGN_BYTES, **tensors):
     """Refuse the tensors a kernel cannot take (``ValueError``): each one,
     by argument name, must be float32, contiguous, of the shape
-    ``shapes[name]`` and start at an :data:`ALIGN_BYTES` aligned address;
+    ``shapes[name]`` and start at an ``align``-byte aligned address;
     then the first must be a CUDA tensor and every other lie on its
     device. Every layout is checked before any device, so a CPU tensor
     shows its layout faults too."""
@@ -113,9 +113,9 @@ def check_args(shapes, **tensors):
         if tuple(tensor.shape) != tuple(shapes[name]):
             raise ValueError(f"{name} has shape {tuple(tensor.shape)}, "
                              f"expected {tuple(shapes[name])}")
-        if tensor.data_ptr() % ALIGN_BYTES:
+        if tensor.data_ptr() % align:
             raise ValueError(
-                f"{name} must start at a {ALIGN_BYTES}-byte aligned "
+                f"{name} must start at a {align}-byte aligned "
                 f"address, got storage offset {tensor.storage_offset()}")
     (first, lead), *rest = tensors.items()
     if not lead.is_cuda:

@@ -1,6 +1,7 @@
 """What the measuring modules share: the device and its label, host-clock
-timing of calls that each end in a synchronize, and the quad and wing
-rollout kernels' launches (``ops.cuda_lib.LAUNCHES``) and the graphed
+timing of calls that each end in a synchronize, the quad and wing
+rollout kernels' and the reference-branch conv kernels' launches
+(``ops.cuda_lib.LAUNCHES``) and the graphed
 train steps' counters, read as differences (a caller's own count from 0
 goes on)."""
 
@@ -10,7 +11,7 @@ import time
 
 import torch
 
-from apg_trajectory_tracking_tpu_torch.ops import cuda_lib
+from apg_trajectory_tracking_tpu_torch.ops import conv_ref, cuda_lib
 from apg_trajectory_tracking_tpu_torch.training import common
 from apg_trajectory_tracking_tpu_torch.utils.device import resolve_device
 
@@ -58,6 +59,12 @@ def wing_launches():
     """(forward, backward) wing rollout-kernel launches so far."""
     return (cuda_lib.LAUNCHES["wing_rollout_fwd"],
             cuda_lib.LAUNCHES["wing_rollout_bwd"])
+
+
+def conv_launches():
+    """(forward, weight gradient, its float64 sum, input gradient) launches
+    of the nets' reference-branch kernels so far."""
+    return tuple(cuda_lib.LAUNCHES[name] for name in conv_ref.KERNELS)
 
 
 def graph_steps():

@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero:
      kernels (``csrc/wing_rollout.cu``) the same way, B in {1, 8, 33,
      4096, 4097}, k in {1, 10, 11}, default params and a mismatched lift
      slope (CL_alpha 3.0), a third of the rows beyond the alpha clamp,
-     and on aligned views;
+     and on aligned views; then the nets' reference-branch kernels
+     (``csrc/conv_ref.cu``): the forward bit-equal to cuDNN's float32
+     convolution, bias and ReLU, and the forward and the input, weight
+     and bias gradients against a float64 twin beside cuDNN's float32
+     error, B in {1, 8, 4097, 65536}, H in {10, 20}; each timed at
+     B = 4096 and 65536 beside its byte bound and cuDNN's time for the
+     same function;
   5. shipped controllers, carried across from the JAX npz, flown on the
      card and on the CPU: ``assets/quad_trained_9k``,
      ``assets/quad_ar_trained`` and ``assets/quad_lstm_trained`` (a
@@ -34,7 +40,10 @@ Phases, in order; any failure exits non-zero:
      ``configs/wing_config.json`` with 500 of its 2000 self-play rows for
      1 epoch (one launch of each wing kernel per step, none of the
      quad's); each with a finite loss and a checkpoint that reloads
-     bit-equal;
+     bit-equal; and the conv kernels' launches (``CONV_PER_STEP``: the
+     concurrent step 1 forward, 1 weight-gradient pair, no input
+     gradient; the recurrent steps 10, 10 and 9 input gradients; the wing
+     none; the epoch's evaluation a forward per net call);
   7. timings: the concurrent, autoregressive, LSTM and wing train steps
      at B = 8 (the shipped configs' batch) and B = 4096 (the wing's first
      call launching one of each wing kernel), and each kernel, quad and
@@ -537,6 +546,19 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 KERNELS = ("quad_rollout_fwd", "quad_rollout_bwd")
 WING_KERNELS = ("wing_rollout_fwd", "wing_rollout_bwd")
+# the nets' reference-branch kernels (csrc/conv_ref.cu): held against a
+# float64 twin beside cuDNN's float32 at these batches and horizons, and
+# timed at the benchmark's two batches; their launches per step of each
+# train path: (forward, weight gradient, its sum, input gradient). A
+# recurrent step's first window is data, its nine later ones are built
+# from the unrolled state and take an input gradient.
+CONV_SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/conv_ref.cu"
+CONV_B_LIST = (1, 8, 4097, 65536)
+CONV_H_LIST = (10, 20)
+CONV_TIMING_B = (4096, 65536)
+CONV_TOL = 1e-6
+CONV_PER_STEP = {"concurrent": (1, 1, 1, 0), "autoregressive": (10, 10, 10, 9),
+                 "LSTM": (10, 10, 10, 9), "wing": (0, 0, 0, 0)}
 PALLAS_CALL = "apg_trajectory_tracking_tpu/ops/pallas_rollout.py:114"
 SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/quad_rollout.cu"
 WING_SOURCE = "apg_trajectory_tracking_tpu_torch/csrc/wing_rollout.cu"
@@ -823,7 +845,7 @@ def phase_build(baseline=None):
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     empty_src = cuda_lib.BUILD_DIR / "empty_kernel.cu"
     empty_src.write_text(EMPTY_KERNEL_SOURCE)
-    sources = {"quad_rollout": None, "wing_rollout": None,
+    sources = {"quad_rollout": None, "wing_rollout": None, "conv_ref": None,
                "empty_kernel": empty_src}
     if baseline:
         sources["quad_rollout_baseline"] = baseline
@@ -910,6 +932,113 @@ def phase_kernels(device):
                       f"wing {label} B=4097 k=11 offset views", view=True,
                       wing=True)
     return worst
+
+
+def phase_conv_kernels(device):
+    """The reference-branch kernels against a float64 twin (on the float32
+    forward's ReLU mask), beside cuDNN's float32 error on the same inputs
+    (each leaf's norm of the difference over its norm), the forward
+    against cuDNN's bit for bit, then timed at the benchmark's batches
+    beside their byte bounds and cuDNN's time for the same function ->
+    {kernel: row}."""
+    import torch.nn.functional as F
+
+    from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+    from apg_trajectory_tracking_tpu_torch.ops import conv_ref as CR
+
+    conv = ControlNet(15, HORIZON, 9, 4 * HORIZON,
+                      generator=torch.Generator().manual_seed(0)).conv_ref
+    w = conv.weight.detach().to(device)
+    b = conv.bias.detach().to(device)
+
+    def grads(fn, ref, g, *leaves):
+        leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        y = fn(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, g))
+
+    names = ("forward", "input", "weight", "bias")
+    for H in CONV_H_LIST:
+        for B in CONV_B_LIST:
+            rng = np.random.RandomState(B + H)
+            ref = torch.tensor(rng.randn(B, H, 9), dtype=torch.float32,
+                               device=device)
+            g = torch.tensor(rng.randn(B, 20, H - 2), dtype=torch.float32,
+                             device=device)
+            # the float64 twin on the float32 forward's ReLU mask: a
+            # pre-activation within float32 rounding of zero (about one in
+            # 10^7 here) would flip a whole term of each gradient
+            mask = (CR.conv_ref_relu_reference(ref, w, b) > 0).double()
+            exact = grads(lambda r, w_, b_: F.conv1d(r.transpose(1, 2), w_, b_)
+                          * mask, ref, g.double(), ref.double(), w.double(),
+                          b.double())
+            kernel = grads(CR.conv_ref_relu, ref, g, ref, w, b)
+            cudnn = grads(CR.conv_ref_relu_reference, ref, g, ref, w, b)
+            errs = {n: (float((k.double() - e).norm() / e.norm()),
+                        float((c.double() - e).norm() / e.norm()))
+                    for n, k, c, e in zip(names, kernel, cudnn, exact)}
+            same = torch.equal(kernel[0], cudnn[0])
+            log(f"[3-4] conv_ref H={H} B={B}: forward bit-equal to cuDNN's "
+                f"{same}; (kernels, cuDNN float32) relative error against "
+                "float64: " + ", ".join(
+                    f"{n} {k:.3e} / {c:.3e}" for n, (k, c) in errs.items()))
+            bad = [n for n, (k, _) in errs.items() if not k < CONV_TOL]
+            if not same:
+                bad.append("forward not bit-equal to cuDNN's")
+            if bad:
+                raise AssertionError(f"conv_ref H={H} B={B}: {bad} at or "
+                                     f"above {CONV_TOL}")
+    rows = {name: {} for name in CR.KERNELS}
+    for B in CONV_TIMING_B:
+        rng = np.random.RandomState(B)
+        ref = torch.tensor(rng.randn(B, HORIZON, 9), dtype=torch.float32,
+                           device=device)
+        g = torch.tensor(rng.randn(B, 20, HORIZON - 2), dtype=torch.float32,
+                         device=device)
+        y = CR.conv_ref_fwd(ref, w, b)
+
+        def library_fwd():
+            return torch.relu(F.conv1d(ref.transpose(1, 2), w, b))
+
+        def library_wgrad():
+            dz = torch.where(y > 0, g, 0.0)
+            return (torch.nn.grad.conv1d_weight(ref.transpose(1, 2),
+                                                w.shape, dz),
+                    dz.sum((0, 2)))
+
+        def library_dgrad():
+            dz = torch.where(y > 0, g, 0.0)
+            return torch.nn.grad.conv1d_input(ref.transpose(1, 2).shape, w,
+                                              dz)
+
+        cases = zip(
+            (CR.FWD, CR.WGRAD, CR.DGRAD),
+            (lambda: CR.conv_ref_fwd(ref, w, b),
+             lambda: CR.conv_ref_wgrad(ref, y, g),
+             lambda: CR.conv_ref_dgrad(y, g, w, HORIZON)),
+            (library_fwd, library_wgrad, library_dgrad),
+            map(bound_ms, CR.conv_ref_bytes(B), CR.conv_ref_ops(B)))
+        for name, kernel, library, (bnd, by) in cases:
+            row = {"ms": kernel_device_ms(kernel, name + "_kernel"),
+                   "call_ms": time_cuda(kernel), "bound_ms": bnd,
+                   "bound_by": by, "library_ms": time_cuda(library)}
+            if name == CR.WGRAD:
+                row["sum_ms"] = kernel_device_ms(
+                    kernel, CR.WGRAD_SUM + "_kernel")
+            rows[name][B] = row
+            log(f"[3-4] {name} B={B}: kernel device time {row['ms']:.5f} ms"
+                + (f" (+ its float64 sum {row['sum_ms']:.5f} ms)"
+                   if "sum_ms" in row else "")
+                + f", per call with launches {row['call_ms']:.5f} ms, "
+                f"bound {bnd:.6f} ms ({by}); cuDNN and PyTorch for the same "
+                f"function {row['library_ms']:.5f} ms")
+    return rows
+
+
+def read_conv_launches():
+    from apg_trajectory_tracking_tpu_torch.perf.common import conv_launches
+
+    torch.cuda.synchronize()
+    return conv_launches()
 
 
 def flips_and_gap(tag, success, values, valid):
@@ -1123,7 +1252,8 @@ def phase_training(device):
             )
         trainer.fit(epochs, verbose=False)
         launches = read_launches()
-        by_path[path] = launches
+        conv = read_conv_launches()
+        by_path[path] = {**launches, "conv_ref": conv}
         # the wing's step unrolls in the wing kernels, the quad's in the
         # quad kernels (k = 1 launches a step in the recurrent modes)
         names = WING_KERNELS if path == "wing" else KERNELS
@@ -1143,6 +1273,15 @@ def phase_training(device):
                 f"steps, expected {want} ({per_step} of each of {names} per "
                 f"step)"
             )
+        # the conv kernels: the train steps' exactly, and one more forward
+        # per net call of the epoch's evaluation, which takes no gradient
+        conv_want = [n * trainer.steps_taken for n in CONV_PER_STEP[path]]
+        log(f"[6] {path}: conv_ref launches (forward, weight gradient, its "
+            f"sum, input gradient) {conv}; the train steps' {conv_want}")
+        if list(conv[1:]) != conv_want[1:] or conv[0] < conv_want[0] or (
+                path == "wing" and conv[0]):
+            raise AssertionError(f"{path}: conv_ref launched {conv}, the "
+                                 f"train steps {conv_want}")
         name = "model_wing_final" if path == "wing" else "model_quad_final"
         check_checkpoint(path, trainer, name, device)
         log(f"[6] {path}: final loss {loss:.3f}; checkpoint reloads "
@@ -4465,10 +4604,15 @@ def phase_headline_bench(device, worst):
     log("[20] bench JSON:")
     out = bench.main([])
     by_path["bench"] = launches = read_launches()
-    log(f"[time] phase 20 bench {time.perf_counter() - t:.1f} s")
+    conv = read_conv_launches()
+    log(f"[time] phase 20 bench {time.perf_counter() - t:.1f} s; conv_ref "
+        f"launches {conv}")
     if launches != launch_counts(**dict.fromkeys(KERNELS, expected)):
         raise AssertionError(f"bench: {launches} rollout launches, expected "
                              f"{expected} of each quad kernel")
+    if conv != (expected, expected, expected, 0):
+        raise AssertionError(f"bench: conv_ref launched {conv}, expected "
+                             f"{expected} of each but the input gradient")
     if not out["device_kind"].startswith(torch.cuda.get_device_name(0)):
         raise AssertionError(f"bench: device_kind {out['device_kind']}")
     for batch, row in out["roofline"].items():
@@ -4634,6 +4778,7 @@ def main(argv=None):
     libs = phase_build(baseline)
     done(2)
     worst = phase_kernels(device)
+    conv_rows = phase_conv_kernels(device)
     done("3-4")
     phase_carried_weights(device)
     done(5)
@@ -4754,6 +4899,20 @@ def main(argv=None):
             "launches_by_path": {path: launches[name]
                                  for path, launches in by_path.items()
                                  if name in launches},
+        })
+    for name, rows in conv_rows.items():
+        if not rows:
+            continue
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": CONV_SOURCE,
+            "replaces": None,  # the JAX package leaves the Conv1d to XLA
+            **{f"{key}_b{n}": row[key] for n, row in rows.items()
+               for key in row},
+            "launches_by_path": {
+                path: launches["conv_ref"] for path, launches in
+                by_path.items() if "conv_ref" in launches},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,11 @@ tests/test_torch_graph_step.py -m cuda``) the graphed concurrent step is
 held to the eager step from the same weights on the same six minibatches:
 each loss, every weight and every momentum buffer within 1e-6 relative and
 bit for bit (the replay runs the same kernels on the same data), with
-cuDNN held to deterministic algorithms: its default weight gradient of the
-net's convolution sums with atomics, so that two eager runs from the same
-weights differ in the last bits, and at B = 4096 the conv's momentum by
-1.6e-4 of its largest element in 3 of 8 pairs. Also each call's loss a
+cuDNN left to its default algorithms: the net's convolution runs in the
+port's own kernels, whose weight gradient sums in a fixed order, so that
+two eager runs from the same weights are bit-equal too (cuDNN's default
+weight gradient summed with atomics, and needed
+``torch.backends.cudnn.deterministic`` here). Also each call's loss a
 tensor of its own, one forward and one backward rollout launch per step
 on both routes, one eager call and one capture after each change of the
 graph's key, and a kernel ``GraphedStep`` does not know of counted on
@@ -142,11 +143,11 @@ def test_any_step_runs_as_it_is_on_the_host():
 
 @pytest.fixture
 def cuda_device():
-    """The card, with cuDNN's deterministic algorithms for the test."""
+    """The card, with cuDNN's default, non-deterministic algorithms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = False
     yield resolve_device("cuda")
     torch.backends.cudnn.deterministic = was
 
