@@ -178,7 +178,10 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
     sees the window ``refs2h[:, k:k+horizon]`` re-centred on the current
     position, emits one action, and one dynamics step follows, by default
     a :func:`quad_rollout` at k = 1 (``unroll``: see
-    :func:`dyn_step_unroll`). An LSTM starts from a zero carry.
+    :func:`dyn_step_unroll`). An LSTM starts from a zero carry. Nothing
+    reads a tensor's value on the host, so the loss can be captured in a
+    CUDA graph. Spans (``utils/debug.span``): ``featurize``, ``net`` and
+    ``unroll`` at each inner step, then ``loss``.
 
     Args:
         states: (B, 12) raw states; refs2h: (B, 2 * horizon, 9) windows.
@@ -194,24 +197,31 @@ def recurrent_loss(net, dyn_params, states, refs2h, dt, horizon, lstm=False,
                       dim=1)
     inter, actions = [], []
     for k in range(horizon):
-        window = rel_refs[:, k:k + horizon]
-        rel_pos = window[:, :, :3] - state[:, None, :3]
-        in_state = quad_state_features(state)
-        vel_minus = window[:, :, 6:9] - state[:, None, 6:9]
-        in_ref = torch.cat([rel_pos, window[:, :, 6:9], vel_minus], dim=2)
-        if lstm:
-            carry, logits = net(carry, in_state, in_ref)
-        else:
-            logits = net(in_state, in_ref)
-        action = torch.sigmoid(logits)
-        # one step through the rollout: a fresh (B, 1, 4) action and the
-        # (B, 12) row block of the last output, both 16-byte aligned
-        state = (unroll or quad_rollout)(dyn_params, state, action[:, None],
-                                         dt)[:, 0]
+        with span("featurize"):
+            window = rel_refs[:, k:k + horizon]
+            rel_pos = window[:, :, :3] - state[:, None, :3]
+            in_state = quad_state_features(state)
+            vel_minus = window[:, :, 6:9] - state[:, None, 6:9]
+            in_ref = torch.cat([rel_pos, window[:, :, 6:9], vel_minus],
+                               dim=2)
+        with span("net"):
+            if lstm:
+                carry, logits = net(carry, in_state, in_ref)
+            else:
+                logits = net(in_state, in_ref)
+            action = torch.sigmoid(logits)
+        with span("unroll"):
+            # one step through the rollout: a fresh (B, 1, 4) action and
+            # the (B, 12) row block of the last output, both 16-byte
+            # aligned
+            state = (unroll or quad_rollout)(dyn_params, state,
+                                             action[:, None], dt)[:, 0]
         inter.append(state)
         actions.append(action)
-    return quad_mpc_loss(torch.stack(inter, dim=1), rel_refs[:, :horizon],
-                         torch.stack(actions, dim=1))
+    with span("loss"):
+        return quad_mpc_loss(torch.stack(inter, dim=1),
+                             rel_refs[:, :horizon],
+                             torch.stack(actions, dim=1))
 
 
 def build_recurrent_step(net, optimizer, dt, horizon, action_dim=4,
@@ -221,13 +231,14 @@ def build_recurrent_step(net, optimizer, dt, horizon, action_dim=4,
     :func:`recurrent_loss` (an :func:`apg_step`, the gradients summed over
     the ranks of ``mesh``). ``action_dim`` is accepted and unused, as in
     the JAX package (each inner step's action is the net's whole output).
-    The step runs eagerly: no graph."""
+    The graph may engage only on the rollout kernels (``unroll`` None), as
+    in :func:`build_concurrent_step`."""
 
     def loss_fn(dyn_params, states, refs):
         return recurrent_loss(net, dyn_params, states, refs, dt, horizon,
                               lstm, lstm_hidden, unroll)
 
-    return apg_step(loss_fn, net, optimizer, mesh)
+    return apg_step(loss_fn, net, optimizer, mesh, graphable=unroll is None)
 
 
 def _take_base_width(cfg, base_model):

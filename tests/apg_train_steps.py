@@ -1,7 +1,9 @@
-"""The port's four APG train-step builders on small nets and minibatches,
-for the tests that hold each of them to the one contract of
-``training.common.apg_step``. This module imports no JAX, so that the
-card's tests can use it on the card's machine."""
+"""The port's four APG train-step builders on small nets and minibatches
+(the recurrent builder twice: with the feed-forward net of the
+autoregressive mode and with the LSTM), for the tests that hold each of
+them to the one contract of ``training.common.apg_step``. This module
+imports no JAX, so that the card's tests can use it on the card's
+machine."""
 
 import copy
 
@@ -15,6 +17,7 @@ from apg_trajectory_tracking_tpu_torch.dynamics.cartpole import (
 from apg_trajectory_tracking_tpu_torch.dynamics.fixed_wing import wing_params
 from apg_trajectory_tracking_tpu_torch.dynamics.quad import quad_params
 from apg_trajectory_tracking_tpu_torch.models.mlp import ControlNet
+from apg_trajectory_tracking_tpu_torch.models.rnn import LSTMNet
 from apg_trajectory_tracking_tpu_torch.models.simple import CartpoleNet
 from apg_trajectory_tracking_tpu_torch.training import (
     train_cartpole,
@@ -24,11 +27,17 @@ from apg_trajectory_tracking_tpu_torch.training import (
 from apg_trajectory_tracking_tpu_torch.training.common import sgd_momentum
 
 HORIZON = 10
-BUILDERS = ("concurrent", "wing", "recurrent", "cartpole")
-# the spans each builder's loss opens inside ``forward``
+BUILDERS = ("concurrent", "wing", "recurrent", "lstm", "cartpole")
+RECURRENT = ("recurrent", "lstm")
+LSTM_HIDDEN = 8
+# the spans each builder's loss opens inside ``forward``: a recurrent
+# loss the first three at each of its inner steps
 LOSS_SPANS = {"concurrent": ["featurize", "net", "unroll", "loss"],
               "wing": ["featurize", "net", "unroll", "loss"],
-              "recurrent": [], "cartpole": []}
+              "recurrent": ["featurize", "net", "unroll"] * HORIZON
+              + ["loss"],
+              "cartpole": []}
+LOSS_SPANS["lstm"] = LOSS_SPANS["recurrent"]
 
 
 def _net(builder):
@@ -42,6 +51,8 @@ def _net(builder):
     if builder == "recurrent":
         return ControlNet(15, HORIZON, 9, 4, hidden=64, conv=True,
                           generator=gen)
+    if builder == "lstm":
+        return LSTMNet(15, HORIZON, 9, 4, hidden=LSTM_HIDDEN, generator=gen)
     return CartpoleNet(out_size=HORIZON, generator=gen)
 
 
@@ -55,10 +66,12 @@ def _build(builder, net, device, **kwargs):
             net, sgd_momentum(net.parameters(), 1e-4), 0.05, 0.05, HORIZON,
             torch.as_tensor(WING_MEAN, device=device),
             torch.as_tensor(WING_STD, device=device), **kwargs)
-    if builder == "recurrent":
+    if builder in RECURRENT:
+        lstm = ({"lstm": True, "lstm_hidden": LSTM_HIDDEN}
+                if builder == "lstm" else {})
         return train_quad.build_recurrent_step(
             net, sgd_momentum(net.parameters(), 1e-5), 0.1, HORIZON,
-            **kwargs)
+            **lstm, **kwargs)
     return train_cartpole.build_cartpole_step(
         net, sgd_momentum(net.parameters(), 1e-5), 0.05, HORIZON, **kwargs)
 
@@ -83,7 +96,7 @@ def dyn(builder, device="cpu"):
 def batches(builder, batch, device="cpu", n=3, seed=0):
     """``n`` minibatches of ``batch`` rows, each the step's arguments after
     the dynamics params: quad states and reference windows (two horizons
-    long for the recurrent step), wing states in level flight at 11.5 m/s
+    long for the recurrent steps), wing states in level flight at 11.5 m/s
     and targets 50 m ahead within 5 m to the side and in height, or
     cart-pole states."""
     out = []
@@ -102,7 +115,7 @@ def batches(builder, batch, device="cpu", n=3, seed=0):
             continue
         else:
             states = rng.randn(batch, 12).astype(np.float32) * 0.3
-            window = HORIZON * (2 if builder == "recurrent" else 1)
+            window = HORIZON * (2 if builder in RECURRENT else 1)
             second = rng.randn(batch, window, 9).astype(np.float32) * 0.3
         out.append((torch.from_numpy(states).to(device),
                     torch.from_numpy(second).to(device)))

@@ -336,7 +336,7 @@ def test_graphed_concurrent_step_is_bit_equal_without_deterministic_cudnn(
     ("wing", (0, 0, 0, 0)),
     # ten net calls a step; the first window is data, the nine after it are
     # built from the unrolled state and take an input gradient
-    ("recurrent", (10, 10, 10, 9))])
+    ("recurrent", (10, 10, 10, 9)), ("lstm", (10, 10, 10, 9))])
 def test_launches_of_the_other_steps(cuda_device, builder, per_step):
     import apg_train_steps as train_steps
 

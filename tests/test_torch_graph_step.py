@@ -72,13 +72,16 @@ def group_of_one(tmp_path_factory):
 
 # (builder, route, whether the graph may engage): a mesh of one sums its
 # gradients with no collective; a custom unroll or a learnt wing changes
-# between steps; the recurrent and cartpole steps always run eagerly
+# between steps; the cartpole step always runs eagerly
 GATES = [
     ("concurrent", "default", True), ("concurrent", "mesh_of_one", True),
     ("concurrent", "unroll", False), ("concurrent", "collective", False),
     ("wing", "default", True), ("wing", "mesh_of_one", True),
     ("wing", "learnt", False), ("wing", "collective", False),
-    ("recurrent", "default", False), ("recurrent", "mesh_of_one", False),
+    ("recurrent", "default", True), ("recurrent", "mesh_of_one", True),
+    ("recurrent", "unroll", False), ("recurrent", "collective", False),
+    ("lstm", "default", True), ("lstm", "mesh_of_one", True),
+    ("lstm", "unroll", False), ("lstm", "collective", False),
     ("cartpole", "default", False), ("cartpole", "mesh_of_one", False)]
 
 
